@@ -1,0 +1,515 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port's planned query path on one CUDA card and check it.
+
+    python3 chip_smoke.py [--n N] [--profile] [--out DIR]
+
+Phases, each of which exits non-zero when it fails:
+
+1. card: requires CUDA; prints ``nvidia-smi``'s name and power limit;
+2. build: compiles the port's CUDA kernels (``src/repro_torch/kernels/csrc``)
+   with nvcc for sm_90a, one process per source;
+3. index: a seeded synthetic corpus at the serving deployment's shard
+   (``configs/udg_serve``: d=768, containment), built by the port's host
+   constructor (M=16, Z=128, K_p=8) and exported to the card;
+4. kernels: each kernel against its plain PyTorch version on the card, at the
+   main path's shapes (B=4096, the export's E, M in {1, 2}, L in {64, 128},
+   brute C=256; f32 and int8 tables) and on edge cases, then timed with CUDA
+   events beside its plain version and its bound;
+5. main path: ``execute_batch(plan="auto")`` over 4096-query batches with
+   selectivities that give every plan rows, plus one ``plan="brute"`` batch;
+   every kernel must have launched there; QPS, latency, plan mix, recall@10
+   against exact ground truth;
+6. parity: 128 of those queries on the CPU (plain versions) and on the card,
+   held equal under the tie rule of ``repro_torch.data.parity``.
+
+Prints one JSON object per line; the line before the last is the kernel
+table and the last is ``{"ok": true, "device": {...}}``. Details go to
+``<out>/chip_smoke.json``, nvcc's output to ``<out>/nvcc.txt`` and, with
+``--profile``, device time by kernel to ``<out>/profile.json`` (``<out>``
+defaults to ``build/chip_smoke``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.configs import CONFIG  # noqa: E402
+from repro_torch.core import build_index  # noqa: E402
+from repro_torch.data import generate_queries, ground_truth, make_dataset, make_queries_vectors  # noqa: E402
+from repro_torch.data.parity import mismatches  # noqa: E402
+from repro_torch.data.workloads import QuerySet, recall_at_k  # noqa: E402
+from repro_torch.exec import execute_batch  # noqa: E402
+from repro_torch.exec.plan import PLAN_NAMES  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.search import batched as search_mod  # noqa: E402
+from repro_torch.search import export_device_graph  # noqa: E402
+from repro_torch.search.batched import prepare_states_extended  # noqa: E402
+
+DIM, BATCH, BEAM, K = CONFIG.dim, CONFIG.batch, CONFIG.beam, CONFIG.k
+FULL_N = CONFIG.n_per_shard   # one shard of the serving deployment
+TIMED_BATCHES = 5
+# the corpus this script builds: the port's sequential host constructor took
+# 1065 s for 65536 objects on the host CPU of an H100 machine (max labeled
+# degree 714), past this script's 1200 s budget, so the default halves n
+# (d, beam, k and the batch stay as deployed; E is the export's own)
+SMOKE_N = 32768
+SELECTIVITIES = (0.003, 0.01, 0.03, 0.1, 0.3)   # query i gets SELECTIVITIES[i % 5]
+BRUTE_SELECTIVITY = 0.003     # <= 256 valid objects at n <= 65536
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12        # H100 SXM, outside the tensor cores
+CMP_OPS_PER_S = 33.5e12       # one compare per FP32 lane per clock
+RECORD: dict = {}
+
+
+def require(ok, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def emit(obj: dict) -> None:
+    RECORD.update(obj)
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warm`` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, nops: float, ops_rate: float) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def close(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error over finite entries; raises unless the +inf positions
+    are equal and finite values agree within rtol=1e-5, atol=1e-5·max(1,|d|)."""
+    fin = torch.isfinite(want)
+    require(torch.equal(torch.isfinite(got), fin), "+inf positions differ from the plain version")
+    g, w = got[fin].double(), want[fin].double()
+    if g.numel() == 0:
+        return 0.0
+    err = (g - w).abs()
+    tol = 1e-5 * torch.clamp(w.abs(), min=1.0) + 1e-5 * w.abs()
+    require(not bool((err > tol).any()), f"distance error {err.max().item():.3g} beyond tolerance")
+    return err.max().item()
+
+
+def scorer_bound(out, open_out, cand, label_key, *, D, elt, scaled, label_bytes,
+                 per_query) -> dict:
+    """A scorer's bound from this run's inputs: the bytes the function must
+    move, each input element read once and each output written once, against
+    its multiply-adds. Every slot's id and output; the label of each slot
+    with id >= 0 (``label_key`` names the distinct labels); the visited word
+    of each slot that passes the label test (``open_out``: the plain version
+    over an empty bitmap), each distinct (query, word) once; the row, norm
+    and scale of each distinct row that is scored; ``per_query`` bytes of
+    query, state and expanded ids per query; 2·D operations per distinct
+    (query, row) pair that is scored."""
+    B, C = cand.shape
+    row_of = torch.arange(B, device=cand.device)[:, None].long() << 32
+    fin = torch.isfinite(out)
+    labels = int(torch.unique(label_key[cand >= 0]).numel())
+    words = int(torch.unique((row_of + (cand.long() >> 5))[torch.isfinite(open_out)]).numel())
+    rows_read = int(torch.unique(cand[fin]).numel())
+    pairs = int(torch.unique((row_of + cand.long())[fin]).numel())
+    nbytes = (B * C * 8 + labels * label_bytes + words * 4
+              + rows_read * (D * elt + 4 + (4 if scaled else 0)) + B * per_query)
+    b_ms, b_by = bound(nbytes, pairs * 2 * D, FP32_OPS_PER_S)
+    return {"bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes, "scored": pairs,
+            "rows_read": rows_read, "labels_read": labels, "words_read": words}
+
+
+def pack(lab: torch.Tensor) -> torch.Tensor:
+    """int32 rectangles [..., 4] -> packed int32 word pairs [..., 2]."""
+    lab = lab.long()
+    w = torch.stack([lab[..., 0] | lab[..., 1] << 16, lab[..., 2] | lab[..., 3] << 16], dim=-1)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def check_scalar_rows(dev) -> list:
+    """Both scorers' scalar row path (vec = 0: D not a multiple of one
+    16-byte load, or a table that is not 16-byte aligned), int8 tail loop
+    included, against the plain versions on small random inputs."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n, B, E, M, V = 300, 16, 24, 2, 40
+    W = (n + 31) // 32
+    lab = torch.randint(0, 12, (n, E, 4), generator=gen, device=dev, dtype=torch.int32)
+    lab[:, ::5, 1] = 0xFFFF                               # the top of a 16-bit field
+    plabels = pack(lab)
+    cur = torch.randint(0, n, (B, M), generator=gen, device=dev, dtype=torch.int32)
+    cand = torch.randint(-1, n, (B, M * E), generator=gen, device=dev, dtype=torch.int32)
+    bf = torch.randint(-1, n, (B, V), generator=gen, device=dev, dtype=torch.int32)
+    rect = torch.randint(0, 12, (B, V, 4), generator=gen, device=dev, dtype=torch.int32)
+    state = torch.randint(0, 12, (B, 2), generator=gen, device=dev, dtype=torch.int32)
+    visited = torch.randint(-2**31, 2**31 - 1, (B, W), generator=gen, device=dev, dtype=torch.int32)
+    cases = []
+    for dt, D, offset in (("f32", 7, 0), ("int8", 770, 0), ("f32", DIM, 1), ("int8", DIM, 1)):
+        x = torch.randn((n, D), generator=gen, device=dev)
+        q = torch.randn((B, D), generator=gen, device=dev)
+        if dt == "int8":
+            rows, scales = ref.quantize_int8(x)
+            deq = rows.float() * scales[:, None]
+            norms = torch.sum(deq * deq, dim=1)
+        else:
+            rows, scales, norms = x, None, torch.sum(x * x, dim=1)
+        # the same rows, ``offset`` elements past an aligned allocation
+        buf = torch.empty(n * D + offset, dtype=rows.dtype, device=dev)
+        table = buf[offset:].view(n, D)
+        table.copy_(rows)
+        require(ops._table_args(table, norms, scales, q)[3] == 0, "the scalar row path not taken")
+        args = (table, plabels, norms, q, cur, cand, state, visited)
+        err = close(ops.filter_dist_gather_packed(*args, scales=scales),
+                    ref.filter_dist_gather_packed_ref(*args, scales))
+        args = (table, norms, q, bf, rect, state, visited)
+        err = max(err, close(ops.filter_dist_gather(*args, scales=scales),
+                             ref.filter_dist_gather_ref(*args, scales)))
+        cases.append({"kernel": "filter_dist (scalar rows)", "table": dt, "D": D,
+                      "offset": offset, "max_abs_err": err})
+    return cases
+
+
+def check_kernels(dg, q, states, ep) -> dict:
+    """Every kernel against its plain version at the main path's shapes and
+    on edge cases; returns the timed table rows by kernel name. The scorer
+    expands each query's entry node (and, at M = 2, that node's first
+    neighbour), as the search's first iterations do, so its candidates pass
+    the label test at the search's own rate."""
+    dev = q.device
+    di = dg.device(dev)
+    n, D = di.table.shape
+    E = di.nbr.shape[1]
+    B = q.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    W = (n + 31) // 32
+    # ~25% of the bits set, bit 31 in about a quarter of the words
+    visited = (torch.randint(-2**31, 2**31 - 1, (B, W), generator=gen, device=dev, dtype=torch.int32)
+               & torch.randint(-2**31, 2**31 - 1, (B, W), generator=gen, device=dev, dtype=torch.int32))
+    vec_q, sc = ref.quantize_int8(di.table)
+    deq = vec_q.float() * sc[:, None]
+    tables = {"f32": (di.table, di.norms, None),
+              "int8": (vec_q, torch.sum(deq * deq, dim=1), sc)}
+    rows, cases = {}, []
+
+    # B1: packed scorer, M = 1 (GRAPH) and M = 2 (GRAPH_WIDE)
+    first = ep.clamp(min=0)
+    expanded = torch.stack([first, di.nbr[first.long(), 0].clamp(min=0)], dim=1)
+    for M in (1, 2):
+        cur = expanded[:, :M].contiguous()
+        cand = di.nbr[cur.long()].reshape(B, M * E).clone()
+        cand[0] = -1                                      # an all-invalid row
+        cand[1, ::3] = -1                                 # scattered padding
+        for dt, (table, norms, scales) in tables.items():
+            args = (table, di.labels, norms, q, cur, cand, states, visited)
+            got = ops.filter_dist_gather_packed(*args, scales=scales)
+            want = ref.filter_dist_gather_packed_ref(*args, scales)
+            err = close(got, want)
+            require(bool(torch.isinf(got[0]).all()), "an all-padding row scored")
+            open_out = ref.filter_dist_gather_packed_ref(*args[:7], torch.zeros_like(visited), scales)
+            label_key = (cur.long()[:, :, None] * E + torch.arange(E, device=dev)).reshape(B, M * E)
+            case = {
+                "kernel": "filter_dist_gather_packed", "table": dt, "B": B, "M": M,
+                "E": E, "D": D, "max_abs_err": err,
+                "ms": time_ms(lambda: ops.filter_dist_gather_packed(*args, scales=scales)),
+                "plain_ms": time_ms(lambda: ref.filter_dist_gather_packed_ref(*args, scales)),
+                **scorer_bound(want, open_out, cand, label_key, D=D, elt=table.element_size(),
+                               scaled=scales is not None, label_bytes=8,
+                               per_query=D * 4 + 8 + M * 4),
+            }
+            cases.append(case)
+            if M == 1 and dt == "f32":
+                rows["filter_dist_gather_packed"] = case
+                d_new, nb = got, cand     # real candidates for the merge check
+
+    # B2: beam merge, L = 64 against the scorer's output, L = 128 wide
+    for L, C in ((BEAM, E), (2 * BEAM, 2 * E)):
+        beam_d = torch.sort(torch.rand((B, L), generator=gen, device=dev) * 400, dim=1).values
+        beam_d[:, L // 2:] = float("inf")
+        beam_d[2] = float("inf")                          # an empty beam
+        beam_ids = torch.randint(0, n, (B, L), generator=gen, device=dev, dtype=torch.int32)
+        beam_ids[torch.isinf(beam_d)] = -1
+        beam_exp = torch.rand((B, L), generator=gen, device=dev) < 0.5
+        if C == E:
+            cand_d, cand_ids = d_new.clone(), nb.clone()
+        else:
+            cand_d = torch.rand((B, C), generator=gen, device=dev) * 400
+            cand_ids = torch.randint(0, n, (B, C), generator=gen, device=dev, dtype=torch.int32)
+            cand_d[torch.rand((B, C), generator=gen, device=dev) < 0.3] = float("inf")
+        # exact ties and duplicate ids: few distinct distances and ids
+        cand_d[3:8] = torch.randint(0, 4, (5, C), generator=gen, device=dev).float()
+        cand_ids[3:8] = torch.randint(0, 8, (5, C), generator=gen, device=dev, dtype=torch.int32)
+        beam_d[3:8] = torch.sort(torch.randint(0, 4, (5, L), generator=gen, device=dev).float(), 1).values
+        beam_d[4, 0] = -0.0                               # -0.0 ties +0.0
+        cand_d[4, :4] = torch.tensor([0.0, -0.0, 0.0, -0.0], device=dev)
+        cand_d[9] = float("inf")                          # all-inf candidates
+        args = (beam_d, beam_ids, beam_exp, cand_d, cand_ids)
+        got = ops.beam_merge(*args, n=n)
+        want = ref.beam_merge_ref(*args, n=n)
+        for g_, w_, name in zip(got, want, ("ids", "d", "exp", "keep")):
+            if name == "d":
+                g_, w_ = g_.view(torch.int32), w_.view(torch.int32)
+            require(torch.equal(g_, w_), f"beam_merge {name} differs from the plain version (L={L})")
+        nbytes = B * (L * 9 + C * 8) + B * (L * 9 + C)
+        lg = max(1, int(np.ceil(np.log2(L + C))))
+        b_ms, b_by = bound(nbytes, B * (L + C) * lg, CMP_OPS_PER_S)
+        case = {
+            "kernel": "beam_merge", "B": B, "L": L, "C": C, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: ops.beam_merge(*args, n=n)),
+            "plain_ms": time_ms(lambda: ref.beam_merge_ref(*args, n=n)),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        cases.append(case)
+        if L == BEAM:
+            rows["beam_merge"] = case
+
+    # B3: the BRUTE_VALID scan: all-pass rectangles, empty bitmap, C = 256
+    V = 256
+    bf = torch.randint(0, n, (B, V), generator=gen, device=dev, dtype=torch.int32)
+    cnt = torch.randint(0, V + 1, (B, 1), generator=gen, device=dev)
+    bf[torch.arange(V, device=dev)[None] >= cnt] = -1     # -1 padded lists
+    bf[0] = -1
+    zeros_lab = torch.zeros((B, V, 4), dtype=torch.int32, device=dev)
+    zeros_st = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+    zeros_vis = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    rand_lab = torch.randint(0, 12, (B, V, 4), generator=gen, device=dev, dtype=torch.int32)
+    rand_st = torch.randint(0, 12, (B, 2), generator=gen, device=dev, dtype=torch.int32)
+    for dt, (table, norms, scales) in tables.items():
+        # general label + visited semantics first, then the brute shape
+        args = (table, norms, q, bf, rand_lab, rand_st, visited)
+        close(ops.filter_dist_gather(*args, scales=scales),
+              ref.filter_dist_gather_ref(*args, scales))
+        args = (table, norms, q, bf, zeros_lab, zeros_st, zeros_vis)
+        got = ops.filter_dist_gather(*args, scales=scales)
+        want = ref.filter_dist_gather_ref(*args, scales)
+        err = close(got, want)
+        require(bool(torch.isinf(got[0]).all()), "an all-padding row scored")
+        case = {
+            "kernel": "filter_dist_gather", "table": dt, "B": B, "C": V, "D": D,
+            "max_abs_err": err,
+            "ms": time_ms(lambda: ops.filter_dist_gather(*args, scales=scales)),
+            "plain_ms": time_ms(lambda: ref.filter_dist_gather_ref(*args, scales)),
+            # the bitmap is empty here, so ``want`` is its own open version
+            **scorer_bound(want, want, bf, torch.arange(B * V, device=dev).view(B, V), D=D,
+                           elt=table.element_size(), scaled=scales is not None,
+                           label_bytes=16, per_query=D * 4 + 8),
+        }
+        cases.append(case)
+        if dt == "f32":
+            rows["filter_dist_gather"] = case
+    cases += check_scalar_rows(dev)
+    torch.cuda.synchronize()
+    RECORD["kernel_cases"] = cases
+    return rows
+
+
+def profile_batch(run, batch_ms: float, out: Path) -> dict:
+    """Device time by kernel over one traced batch; the idle share is
+    1 - device busy time / the untraced median batch time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    busy = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    (out / "profile.json").write_text(json.dumps(top, indent=1))
+    return {"device_busy_ms": busy, "batch_ms": batch_ms,
+            "idle_share": 1.0 - busy / batch_ms,
+            "top": [[name[:60], round(t, 3), c] for name, (t, c) in top[:12]]}
+
+
+def make_queries(n_q, s, t, sels, seed):
+    """``n_q`` queries, query i at selectivity ``sels[i % len(sels)]``."""
+    qv = make_queries_vectors(n_q, DIM, seed=seed)
+    s_q, t_q = np.empty(n_q), np.empty(n_q)
+    for g, sel in enumerate(sels):
+        idx = np.arange(g, n_q, len(sels))
+        qs = generate_queries(qv[idx], s, t, CONFIG.relation, sel, k=K, seed=seed + g)
+        s_q[idx], t_q[idx] = qs.s_q, qs.t_q
+    return qv, s_q, t_q
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=SMOKE_N, help="corpus size")
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one auto batch with torch.profiler")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+    out = args.out
+    out.mkdir(parents=True, exist_ok=True)
+
+    # 1. card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    RECORD["card"] = smi
+
+    # 2. build
+    build_s = _build.build_all()
+    (out / "nvcc.txt").write_text("".join(
+        f"== {name}.cu ==\n{log}\n" for name, log in _build.LOGS.items()))
+    emit({"build": {"nvcc_s": round(build_s, 2), "sources": sorted(_build.ARGTYPES)}})
+
+    # 3. index
+    n = args.n
+    if n != FULL_N:
+        emit({"reduced": {"n": [FULL_N, n], "why": "host build time"}})
+    vecs, s, t = make_dataset(n, DIM, seed=0)
+    t0 = time.perf_counter()
+    g, et, rep = build_index(vecs, s, t, CONFIG.relation, M=16, Z=128, K_p=8, batched=False)
+    host_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dg = export_device_graph(g, et, device="cuda")
+    export_s = time.perf_counter() - t0
+    dev_bytes = {k: int(v.numel() * v.element_size())
+                 for k, v in vars(dg.device()).items() if v is not None}
+    emit({"index": {
+        "n": n, "d": DIM, "relation": CONFIG.relation, "host_build_s": round(host_build_s, 1),
+        "export_s": round(export_s, 2), "max_labeled_degree": int(max(g.adj[u].size for u in range(g.n))),
+        "E": dg.max_degree, "tuples": rep.num_tuples, "device_bytes": dev_bytes,
+    }})
+
+    # 4. kernels at the main path's shapes
+    qv, s_q, t_q = make_queries(BATCH, s, t, SELECTIVITIES, 1)
+    q_dev = torch.as_tensor(qv, device="cuda")
+    states, ep, _ = prepare_states_extended(dg, s_q, t_q)
+    rows = check_kernels(dg, q_dev, torch.as_tensor(states, device="cuda"),
+                         torch.as_tensor(ep, device="cuda"))
+
+    # 5. main path: counts to 0 just before, read just after
+    ops.reset_launches()
+    for key in search_mod.LOOP_STATS:
+        search_mod.LOOP_STATS[key] = 0
+    lat = []
+    for i in range(1 + TIMED_BATCHES):          # the first is warm-up
+        t0 = time.perf_counter()
+        ids, d, pb = execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto",
+                                   return_plans=True)
+        lat.append(time.perf_counter() - t0)
+    mix = pb.mix()
+    bq, bs, bt = make_queries(BATCH, s, t, (BRUTE_SELECTIVITY,), 2)
+    t0 = time.perf_counter()
+    b_ids, b_d = execute_batch(dg, bq, bs, bt, k=K, beam=BEAM, plan="brute")
+    brute_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    loop = dict(search_mod.LOOP_STATS)
+    for name, cnt in launches.items():
+        require(cnt > 0, f"kernel {name} never launched on the main path")
+    for res_ids, res_d in ((ids, d), (b_ids, b_d)):
+        require(res_ids.shape == (BATCH, K) and res_d.shape == (BATCH, K), "result shape")
+        # every query has >= k valid objects
+        require(np.all(np.isfinite(res_d)), "non-finite distance in a result")
+    recall, gt = {}, {}
+    for name, (qq, ss, tt, rid) in {"auto": (qv, s_q, t_q, ids), "brute": (bq, bs, bt, b_ids)}.items():
+        qs = QuerySet(CONFIG.relation, qq[:1024], ss[:1024], tt[:1024], 0.0, np.zeros(1024), K)
+        gt[name] = ground_truth(qs, vecs, s, t).gt_ids
+        recall[name] = recall_at_k(rid[:1024], qs)
+    by_selectivity = {}
+    for g_, sel in enumerate(SELECTIVITIES):
+        idx = np.arange(g_, 1024, len(SELECTIVITIES))
+        qs = QuerySet(CONFIG.relation, qv[idx], s_q[idx], t_q[idx], sel, np.zeros(idx.size), K,
+                      gt_ids=gt["auto"][idx])
+        plans = np.bincount(pb.plans[idx], minlength=3)
+        by_selectivity[str(sel)] = {"recall_at_10": recall_at_k(ids[idx], qs),
+                                    "plans": {PLAN_NAMES[p]: int(c) for p, c in enumerate(plans)}}
+    require(recall["brute"] >= 0.999, f"exact brute scan recall {recall['brute']}")
+    timed = lat[1:]
+    emit({"main_path": {
+        "batch": BATCH, "beam": BEAM, "k": K, "timed_batches": len(timed),
+        "qps": BATCH / statistics.median(timed),
+        "p50_batch_ms": float(np.percentile(timed, 50) * 1e3),
+        "p99_batch_ms": float(np.percentile(timed, 99) * 1e3),
+        "warmup_batch_ms": lat[0] * 1e3, "brute_batch_ms": brute_s * 1e3,
+        "plan_mix": mix, "recall_at_10": recall["auto"], "brute_recall_at_10": recall["brute"],
+        "recall_queries": 1024, "by_selectivity": by_selectivity, "launches": launches, "loop_syncs": loop["syncs"],
+        "loop_iterations": loop["iterations"],
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }})
+
+    if args.profile:
+        emit({"profile": profile_batch(
+            lambda: execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto"),
+            statistics.median(timed) * 1e3, out)})
+
+    # 6. parity: the same 128 queries on the CPU (plain versions) and the card
+    sub = slice(0, 128)
+    ids_c, d_c, pb_c = execute_batch(dg, qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM,
+                                     plan="auto", return_plans=True, device="cpu")
+    ids_g, d_g, pb_g = execute_batch(dg, qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM,
+                                     plan="auto", return_plans=True)
+    require(np.array_equal(pb_c.plans, pb_g.plans), "plans differ between the CPU and the card")
+    bad = mismatches(ids_c, d_c, ids_g, d_g)
+    require(not bad, f"card vs CPU: {bad[:5]}")
+    emit({"parity": {
+        "queries": 128, "plans": {PLAN_NAMES[p]: int((pb_g.plans == p).sum()) for p in PLAN_NAMES},
+        "ids_equal": bool(np.array_equal(ids_c, ids_g)),
+        "max_abs_err": float(np.max(np.abs(np.where(np.isfinite(d_c), d_c - d_g, 0.0)))),
+    }})
+
+    replaces = {
+        "filter_dist_gather_packed": ("src/repro_torch/kernels/csrc/filter_dist.cu",
+                                      "src/repro/kernels/filter_dist.py:404"),
+        "beam_merge": ("src/repro_torch/kernels/csrc/beam_merge.cu",
+                       "src/repro/kernels/beam_merge.py:273"),
+        "filter_dist_gather": ("src/repro_torch/kernels/csrc/filter_dist.cu",
+                               "src/repro/kernels/filter_dist.py:266"),
+    }
+    table = []
+    for name, (src, tpu) in replaces.items():
+        r = rows[name]
+        table.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "ok": True,
+        })
+    RECORD["seconds"] = time.perf_counter() - t_all
+    (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
+    print(f"total {RECORD['seconds']:.1f} s", flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

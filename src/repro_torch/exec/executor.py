@@ -1,0 +1,180 @@
+"""Selectivity-aware batched executor: three strategies, one batch.
+
+``execute_batch`` canonicalizes the batch, asks the planner for a per-query
+strategy, and runs the whole batch through all three paths, as the
+reference does (``executor.py:117-144``):
+
+  * the ``GRAPH`` beam search, with entry points masked to -1 on every row
+    planned elsewhere (a masked row's beam starts empty: zero work);
+  * ``GRAPH_WIDE``, a second instantiation of the same search with the
+    widened (beam, expand), masked the same way;
+  * ``BRUTE_VALID``, a scan of the host-enumerated valid-id lists
+    (``[B, brute_max_valid]`` int32, -1 padded — rows planned elsewhere are
+    all padding);
+
+then selects each row's result by its plan. ``plan="graph"`` bypasses the
+planner; ``"wide"`` / ``"brute"`` force one strategy.
+
+Not ported yet (ROADMAP A): ``stats=True``, ``fused=False``, the int32
+label layout and the segmented tier's ``worklist_exec_core``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.exec.bruteforce import brute_topk_impl, effective_norms
+from repro_torch.exec.plan import (
+    PlannerConfig,
+    QueryPlan,
+    default_planner_config,
+    plan_queries,
+)
+from repro_torch.search.batched import LOOP_BLOCK, prepare_states_extended, search_core
+
+PLANS = ("auto", "graph", "wide", "brute")
+
+
+def planned_exec_core(
+    table: torch.Tensor,     # [n, D] f32 (or int8 with scales)
+    nbr: torch.Tensor,       # [n, E] int32
+    plabels: torch.Tensor,   # [n, E, 2] int32 packed label words
+    q: torch.Tensor,         # [B, D] f32
+    states: torch.Tensor,    # [B, 2] int32
+    ep_graph: torch.Tensor,  # [B] int32 entry ids, -1 unless plan==GRAPH
+    ep_wide: torch.Tensor,   # [B] int32 entry ids, -1 unless plan==GRAPH_WIDE
+    bf_ids: torch.Tensor,    # [B, V] int32 valid ids, -1 unless plan==BRUTE
+    plans: torch.Tensor,     # [B] int32 QueryPlan values
+    *,
+    k: int,
+    beam: int,
+    wide_beam: int,
+    max_iters: int,
+    wide_max_iters: int,
+    expand: int = 1,
+    wide_expand: int = 1,
+    norms: torch.Tensor,
+    scales: torch.Tensor | None = None,
+    block: int = LOOP_BLOCK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All three strategies over the batch + per-row plan select."""
+    ids_g, d_g = search_core(
+        table, nbr, plabels, q, states, ep_graph, k=k, beam=beam,
+        max_iters=max_iters, expand=expand, norms=norms, scales=scales,
+        block=block,
+    )
+    ids_w, d_w = search_core(
+        table, nbr, plabels, q, states, ep_wide, k=k, beam=wide_beam,
+        max_iters=wide_max_iters, expand=wide_expand, norms=norms,
+        scales=scales, block=block,
+    )
+    nrm = effective_norms(table, scales, norms)
+    ids_b, d_b = brute_topk_impl(table, nrm, q, bf_ids, k=k, scales=scales)
+    sel = plans[:, None]
+    graph, wide = sel == int(QueryPlan.GRAPH), sel == int(QueryPlan.GRAPH_WIDE)
+    ids = torch.where(graph, ids_g, torch.where(wide, ids_w, ids_b))
+    d = torch.where(graph, d_g, torch.where(wide, d_w, d_b))
+    return ids, d
+
+
+def mask_entry_points(
+    ep: np.ndarray, plans: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Split one entry-point vector into per-strategy padded copies."""
+    ep = np.asarray(ep, dtype=np.int32)
+    ep_graph = np.where(plans == int(QueryPlan.GRAPH), ep, -1).astype(np.int32)
+    ep_wide = np.where(
+        plans == int(QueryPlan.GRAPH_WIDE), ep, -1
+    ).astype(np.int32)
+    return ep_graph, ep_wide
+
+
+def execute_batch(
+    dg,
+    q: np.ndarray,
+    s_q: np.ndarray,
+    t_q: np.ndarray,
+    *,
+    k: int = 10,
+    beam: int = 64,
+    max_iters: Optional[int] = None,
+    expand: int = 1,
+    plan: str = "auto",
+    config: Optional[PlannerConfig] = None,
+    return_plans: bool = False,
+    row_mask: Optional[np.ndarray] = None,
+    device=None,
+    block: int = LOOP_BLOCK,
+):
+    """Planned end-to-end batched query over a ``DeviceGraph`` on ``device``
+    (``None`` = the card).
+
+    ``plan`` is ``"auto"`` (selectivity-aware, the default), ``"graph"``
+    (the single-strategy parity oracle), ``"wide"`` or ``"brute"`` (forced
+    strategies). ``row_mask`` (``[B]`` bool) drops rows by padding: a
+    ``False`` row is treated as invalid and returns ``ids=-1 / d=+inf`` at
+    no traversal cost. Returns numpy ``(ids [B, k], dists [B, k])``, plus the
+    ``PlanBatch`` when ``return_plans`` is set (``None`` for the non-auto
+    modes)."""
+    if plan not in PLANS:
+        raise ValueError(f"plan={plan!r} not in {PLANS}")
+    dev = resolve_device(device)
+    config = config or default_planner_config()
+    states, ep, invalid = prepare_states_extended(dg, s_q, t_q)
+    B = states.shape[0]
+    if row_mask is not None:
+        row_mask = np.asarray(row_mask, dtype=bool).reshape(-1)
+        if row_mask.shape[0] != B:
+            raise ValueError(
+                f"row_mask has {row_mask.shape[0]} rows, batch has {B}"
+            )
+        invalid = invalid | ~row_mask
+        ep = np.where(row_mask, ep, -1).astype(np.int32)
+    if plan == "auto":
+        pb = plan_queries(dg.planner, states, invalid, config=config)
+        plans, bf_ids = pb.plans, pb.bf_ids
+    elif plan in ("graph", "wide"):
+        pb = None
+        forced = QueryPlan.GRAPH if plan == "graph" else QueryPlan.GRAPH_WIDE
+        plans = np.full(B, int(forced), dtype=np.int32)
+        bf_ids = np.full((B, config.brute_max_valid), -1, dtype=np.int32)
+    else:  # forced brute: exact valid sets of ANY size, capacity rounded
+        # up to a power of two
+        pb = None
+        if dg.planner is None:
+            raise ValueError("plan='brute' requires a DeviceGraph planner")
+        plans = np.full(B, int(QueryPlan.BRUTE_VALID), dtype=np.int32)
+        lists = [
+            np.empty(0, np.int32) if invalid[i]
+            else dg.planner.exact_valid_ids(int(states[i, 0]), int(states[i, 1]))
+            for i in range(B)
+        ]
+        cap = max(int(max((l.shape[0] for l in lists), default=1)), 1)
+        cap = 1 << (cap - 1).bit_length()
+        bf_ids = np.full((B, cap), -1, dtype=np.int32)
+        for i, l in enumerate(lists):
+            bf_ids[i, : l.shape[0]] = l
+    ep_graph, ep_wide = mask_entry_points(ep, plans)
+    wide_beam = max(beam * config.wide_beam_scale, beam)
+    mi = max_iters if max_iters is not None else 2 * beam
+    labels = dg.serving_labels(device=dev)
+    di = dg.device(dev)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    ids, d = planned_exec_core(
+        di.table, di.nbr, labels, put(np.asarray(q, dtype=np.float32)),
+        put(states), put(ep_graph), put(ep_wide), put(bf_ids), put(plans),
+        k=k, beam=beam, wide_beam=wide_beam,
+        max_iters=mi, wide_max_iters=mi * config.wide_beam_scale,
+        expand=expand, wide_expand=min(config.wide_expand, wide_beam),
+        norms=di.norms, scales=di.scales, block=block,
+    )
+    ret = (ids.cpu().numpy(), d.cpu().numpy())
+    if return_plans:
+        ret += (pb,)
+    return ret

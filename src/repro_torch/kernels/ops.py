@@ -1,0 +1,210 @@
+"""Kernel wrappers of the planned query path.
+
+Same names and signatures as the JAX package's ``kernels/ops.py`` (minus
+``use_ref``). Each op dispatches on where its tensors lie:
+
+* all on the CPU -> the plain PyTorch version in ``ref``;
+* all on one CUDA device -> the hand-written kernel in ``csrc/``, launched on
+  the current stream, or ``RuntimeError`` (a failed build, a refused launch,
+  a tensor of the wrong type, shape or layout). There is no fallback.
+
+``LAUNCHES`` counts kernel launches per kernel, incremented only where a
+kernel is launched.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+quantize_int8 = ref.quantize_int8
+
+LAUNCHES = {"filter_dist_gather_packed": 0, "beam_merge": 0, "filter_dist_gather": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(*tensors) -> bool:
+    """True for all-CUDA inputs, False for all-CPU; raises on a mix."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise RuntimeError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    return True
+
+
+def _check(t, name, dtype, shape):
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise RuntimeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise RuntimeError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise RuntimeError(f"{name}: must be contiguous")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+
+
+def _table_args(table, norms, scales, q):
+    """Checks shared by both scorers; returns (n, D, is_int8, vec)."""
+    n, D = table.shape
+    B = q.shape[0]
+    _check(table, "table", (torch.float32, torch.int8), (n, D))
+    _check(norms, "norms", torch.float32, (n,))
+    if scales is not None:
+        _check(scales, "scales", torch.float32, (n,))
+    _check(q, "q", torch.float32, (B, D))
+    is_int8 = table.dtype == torch.int8
+    width = 16 if is_int8 else 4     # elements per 16-byte load
+    vec = int(D % width == 0 and table.data_ptr() % 16 == 0)
+    return n, D, int(is_int8), vec
+
+
+def filter_dist_gather(
+    table: torch.Tensor,      # [n, D] full vector table (f32 or int8)
+    norms: torch.Tensor,      # [n] f32 cached ‖c‖² of the (dequantized) rows
+    q: torch.Tensor,          # [B, D]
+    cand_ids: torch.Tensor,   # [B, C] int32 candidate row ids (-1 = padding)
+    labels: torch.Tensor,     # [B, C, 4] int32
+    state: torch.Tensor,      # [B, 2] int32
+    visited: torch.Tensor,    # [B, ceil(n/32)] int32 bit-packed visited set
+    *,
+    scales: torch.Tensor | None = None,   # [n] f32 int8 dequant scales
+) -> torch.Tensor:
+    """Gather-fused label + visited test + squared distance ``[B, C]``."""
+    if not _on_cuda(table, norms, q, cand_ids, labels, state, visited, scales):
+        return ref.filter_dist_gather_ref(
+            table, norms, q, cand_ids, labels, state, visited, scales)
+    n, D, is_int8, vec = _table_args(table, norms, scales, q)
+    B, C = cand_ids.shape
+    W = (n + 31) // 32
+    _check(cand_ids, "cand_ids", torch.int32, (B, C))
+    _check(labels, "labels", torch.int32, (B, C, 4))
+    _check(state, "state", torch.int32, (B, 2))
+    _check(visited, "visited", torch.int32, (B, W))
+    out = torch.empty((B, C), dtype=torch.float32, device=q.device)
+    rc = _build.library("filter_dist").filter_dist_gather(
+        _ptr(table), is_int8, n, D, _ptr(norms), _ptr(scales), _ptr(q),
+        _ptr(cand_ids), B, C, _ptr(labels), _ptr(state), _ptr(visited), W,
+        vec, _ptr(out), _stream(q),
+    )
+    _raise_on(rc, "filter_dist_gather")
+    LAUNCHES["filter_dist_gather"] += 1
+    return out
+
+
+def filter_dist_gather_packed(
+    table: torch.Tensor,      # [n, D] full vector table (f32 or int8)
+    plabels: torch.Tensor,    # [n, E, 2] int32 bit-packed label rectangles
+    norms: torch.Tensor,      # [n] f32 cached ‖c‖² of the (dequantized) rows
+    q: torch.Tensor,          # [B, D]
+    cur_ids: torch.Tensor,    # [B, M] int32 expanded beam nodes
+    cand_ids: torch.Tensor,   # [B, M*E] int32 candidate row ids (-1 = padding)
+    state: torch.Tensor,      # [B, 2] int32
+    visited: torch.Tensor,    # [B, ceil(n/32)] int32 bit-packed visited set
+    *,
+    scales: torch.Tensor | None = None,   # [n] f32 int8 dequant scales
+) -> torch.Tensor:
+    """Packed-label scorer ``[B, M·E]``: the label of candidate j is the word
+    pair ``plabels[cur_ids[b, j // E], j % E]``, read inside the kernel."""
+    if not _on_cuda(table, plabels, norms, q, cur_ids, cand_ids, state,
+                    visited, scales):
+        return ref.filter_dist_gather_packed_ref(
+            table, plabels, norms, q, cur_ids, cand_ids, state, visited, scales)
+    n, D, is_int8, vec = _table_args(table, norms, scales, q)
+    B, M = cur_ids.shape
+    E = plabels.shape[1]
+    W = (n + 31) // 32
+    _check(plabels, "plabels", torch.int32, (n, E, 2))
+    _check(cur_ids, "cur_ids", torch.int32, (B, M))
+    _check(cand_ids, "cand_ids", torch.int32, (B, M * E))
+    _check(state, "state", torch.int32, (B, 2))
+    _check(visited, "visited", torch.int32, (B, W))
+    out = torch.empty((B, M * E), dtype=torch.float32, device=q.device)
+    rc = _build.library("filter_dist").filter_dist_gather_packed(
+        _ptr(table), is_int8, n, D, _ptr(norms), _ptr(scales), _ptr(q),
+        _ptr(cur_ids), M, _ptr(cand_ids), B, M * E, _ptr(plabels), E,
+        _ptr(state), _ptr(visited), W, vec, _ptr(out), _stream(q),
+    )
+    _raise_on(rc, "filter_dist_gather_packed")
+    LAUNCHES["filter_dist_gather_packed"] += 1
+    return out
+
+
+def beam_merge(
+    beam_d: torch.Tensor,     # [B, L] f32 ascending beam distances
+    beam_ids: torch.Tensor,   # [B, L] int32 (-1 padding)
+    beam_exp: torch.Tensor,   # [B, L] bool expanded flags
+    cand_d: torch.Tensor,     # [B, C] f32 (+inf = dead candidate)
+    cand_ids: torch.Tensor,   # [B, C] int32
+    *,
+    n: int,
+):
+    """Deduplicating top-L beam merge — ``(new_ids, new_d, new_exp, keep)``,
+    bitwise equal to the stable-sort oracle ``ref.beam_merge_ref``."""
+    if not _on_cuda(beam_d, beam_ids, beam_exp, cand_d, cand_ids):
+        return ref.beam_merge_ref(beam_d, beam_ids, beam_exp, cand_d, cand_ids, n=n)
+    B, L = beam_d.shape
+    C = cand_d.shape[1]
+    _check(beam_d, "beam_d", torch.float32, (B, L))
+    _check(beam_ids, "beam_ids", torch.int32, (B, L))
+    _check(beam_exp, "beam_exp", torch.bool, (B, L))
+    _check(cand_d, "cand_d", torch.float32, (B, C))
+    _check(cand_ids, "cand_ids", torch.int32, (B, C))
+    dev = beam_d.device
+    new_ids = torch.empty((B, L), dtype=torch.int32, device=dev)
+    new_d = torch.empty((B, L), dtype=torch.float32, device=dev)
+    new_exp = torch.empty((B, L), dtype=torch.bool, device=dev)
+    keep = torch.empty((B, C), dtype=torch.bool, device=dev)
+    rc = _build.library("beam_merge").beam_merge(
+        _ptr(beam_d), _ptr(beam_ids), _ptr(beam_exp), _ptr(cand_d),
+        _ptr(cand_ids), B, L, C, int(n), _ptr(new_ids), _ptr(new_d),
+        _ptr(new_exp), _ptr(keep), _stream(beam_d),
+    )
+    _raise_on(rc, "beam_merge")
+    LAUNCHES["beam_merge"] += 1
+    return new_ids, new_d, new_exp, keep
+
+
+def topk_merge(
+    acc_d: torch.Tensor,      # [B, L] f32 ascending (+inf padding)
+    acc_ids: torch.Tensor,    # [B, L] int32 (-1 padding)
+    cand_d: torch.Tensor,     # [B, C] f32 (+inf = dead candidate)
+    cand_ids: torch.Tensor,   # [B, C] int32
+    *,
+    n: int,
+):
+    """Fold a candidate block into a running ascending top-L — ``(ids, d)``:
+    :func:`beam_merge` with no expanded flags. ``n`` is any bound strictly
+    above every live id (the dedup sentinel)."""
+    exp = torch.zeros(acc_ids.shape, dtype=torch.bool, device=acc_ids.device)
+    new_ids, new_d, _, _ = beam_merge(acc_d, acc_ids, exp, cand_d, cand_ids, n=n)
+    return new_ids, new_d
+
+
+__all__ = [
+    "LAUNCHES",
+    "beam_merge",
+    "filter_dist_gather",
+    "filter_dist_gather_packed",
+    "quantize_int8",
+    "reset_launches",
+    "topk_merge",
+]

@@ -1,0 +1,152 @@
+"""Plain PyTorch versions of the kernels on the planned query path.
+
+Twins of the JAX package's jnp oracles (``kernels/ref.py``,
+``kernels/beam_merge.py``, ``kernels/int8dist.py``). They are what the
+kernel wrappers in ``ops`` run on CPU tensors, and what ``chip_smoke.py``
+holds each CUDA kernel against on the card.
+
+Bit patterns that the reference keeps as uint32 (packed labels, the visited
+bitmap) are int32 here: torch has no ``>>`` or ``index_add_`` for uint32.
+An int32 shifts right arithmetically, so a bit is read as ``(w >> s) & 1``
+and a 16-bit field as ``w & 0xFFFF`` / ``(w >> 16) & 0xFFFF``.
+"""
+from __future__ import annotations
+
+import torch
+
+INF = float("inf")
+
+
+def filter_dist_gather_ref(
+    table: torch.Tensor,      # [n, D] full vector table (f32 or int8)
+    norms: torch.Tensor,      # [n] f32 cached ‖c‖² (of the dequantized rows)
+    q: torch.Tensor,          # [B, D] query vectors
+    cand_ids: torch.Tensor,   # [B, C] int32 candidate row ids (-1 = padding)
+    labels: torch.Tensor,     # [B, C, 4] int32 label rectangles (l, r, b, e)
+    state: torch.Tensor,      # [B, 2] int32 canonical rank state (a, c)
+    visited: torch.Tensor,    # [B, ceil(n/32)] int32 bit-packed visited set
+    scales: torch.Tensor | None = None,   # [n] f32 int8 dequant scales
+) -> torch.Tensor:
+    """Gathers the candidate rows (the ``[B, C, D]`` intermediate the kernel
+    avoids) and returns ``[B, C]`` f32: ``‖c‖² − 2·scale·(q·c) + ‖q‖²`` where
+    the tuple is active for (a, c), the id is >= 0 and the candidate's
+    visited bit is clear; +inf otherwise."""
+    n = table.shape[0]
+    q = q.float()
+    safe = cand_ids.long().clamp(0, n - 1)
+    cand = table[safe]                                # [B, C, D]
+    # q.c and |q|^2 summed in f64 and rounded once to f32, as the kernel does:
+    # the two then agree to the bit whatever order each sums in
+    cross = torch.einsum("bd,bcd->bc", q.double(), cand.double()).float()
+    if scales is not None:
+        cross = cross * scales[safe]
+    qs = torch.sum(q.double() ** 2, dim=-1, keepdim=True).float()
+    dist = norms[safe] - 2.0 * cross + qs
+    a = state[:, 0:1]
+    cc = state[:, 1:2]
+    word = torch.gather(visited, 1, safe >> 5)
+    seen = ((word >> (safe & 31)) & 1) == 1
+    ok = (
+        (labels[..., 0] <= a)
+        & (a <= labels[..., 1])
+        & (labels[..., 2] <= cc)
+        & (cc <= labels[..., 3])
+        & (cand_ids >= 0)
+        & ~seen
+    )
+    return torch.where(ok, dist, torch.full_like(dist, INF))
+
+
+def unpack_labels(plabels: torch.Tensor) -> torch.Tensor:
+    """Packed int32 word pairs ``[..., 2]`` -> int32 rectangles ``[..., 4]``
+    (l, r, b, e): word 0 = ``l | r << 16``, word 1 = ``b | e << 16``."""
+    w0 = plabels[..., 0]
+    w1 = plabels[..., 1]
+    return torch.stack(
+        [w0 & 0xFFFF, (w0 >> 16) & 0xFFFF, w1 & 0xFFFF, (w1 >> 16) & 0xFFFF],
+        dim=-1,
+    ).to(torch.int32)
+
+
+def filter_dist_gather_packed_ref(
+    table: torch.Tensor,      # [n, D] full vector table (f32 or int8)
+    plabels: torch.Tensor,    # [n, E, 2] int32 bit-packed label rectangles
+    norms: torch.Tensor,      # [n] f32 cached ‖c‖²
+    q: torch.Tensor,          # [B, D] query vectors
+    cur_ids: torch.Tensor,    # [B, M] int32 expanded beam nodes (label rows)
+    cand_ids: torch.Tensor,   # [B, M*E] int32 candidate row ids (-1 = padding)
+    state: torch.Tensor,      # [B, 2] int32 canonical rank state (a, c)
+    visited: torch.Tensor,    # [B, ceil(n/32)] int32 bit-packed visited set
+    scales: torch.Tensor | None = None,   # [n] f32 int8 dequant scales
+) -> torch.Tensor:
+    """Gathers the packed label rows of the ``M`` expanded nodes, unpacks
+    them, and scores through :func:`filter_dist_gather_ref`."""
+    n = table.shape[0]
+    B, M = cur_ids.shape
+    E = plabels.shape[1]
+    rows = plabels[cur_ids.long().clamp(0, n - 1)]    # [B, M, E, 2]
+    labels = unpack_labels(rows.reshape(B, M * E, 2))
+    return filter_dist_gather_ref(
+        table, norms, q, cand_ids, labels, state, visited, scales
+    )
+
+
+def mono_key(d: torch.Tensor) -> torch.Tensor:
+    """Order-isomorphic key of f32 values as int64 in ``[0, 2**32)``: a < b
+    (IEEE, no NaN) iff key(a) < key(b). ``-0.0`` is normalized to ``+0.0``
+    first, so float equality and key equality coincide."""
+    bits = (d.float() + 0.0).view(torch.int32).long() & 0xFFFFFFFF
+    neg = bits >= 0x80000000
+    return torch.where(neg, bits ^ 0xFFFFFFFF, bits | 0x80000000)
+
+
+def dedup_mask(
+    cand_d: torch.Tensor, cand_ids: torch.Tensor, n: int
+) -> torch.Tensor:
+    """[B, C] bool: True where an *earlier* finite candidate in the row
+    carries the same id (keep-first duplicate suppression)."""
+    C = cand_d.shape[1]
+    fin = torch.isfinite(cand_d)
+    id_key = torch.where(fin, cand_ids, torch.full_like(cand_ids, n))
+    earlier = torch.ones(C, C, dtype=torch.bool, device=cand_d.device).triu(1)
+    same = id_key[:, :, None] == id_key[:, None, :]      # [B, j, i]
+    return torch.any(same & earlier[None], dim=1) & fin
+
+
+def beam_merge_ref(
+    beam_d: torch.Tensor,     # [B, L] f32 ascending beam distances
+    beam_ids: torch.Tensor,   # [B, L] int32 (-1 padding)
+    beam_exp: torch.Tensor,   # [B, L] bool expanded flags
+    cand_d: torch.Tensor,     # [B, C] f32 (+inf = dead candidate)
+    cand_ids: torch.Tensor,   # [B, C] int32
+    *,
+    n: int,
+):
+    """Stable-sort top-L merge: suppress every candidate whose id appeared
+    on an earlier finite candidate, then stable-sort ``[beam, candidates]``
+    by distance and keep the best L — ties resolve by concat position.
+    Returns ``(new_ids, new_d, new_exp, keep)``."""
+    L = beam_d.shape[1]
+    dup = dedup_mask(cand_d, cand_ids, n)
+    d_dd = torch.where(dup, torch.full_like(cand_d, INF), cand_d)
+    keep = torch.isfinite(d_dd)
+    all_d = torch.cat([beam_d, d_dd], dim=1)
+    all_ids = torch.cat([beam_ids, cand_ids], dim=1)
+    all_exp = torch.cat([beam_exp, ~keep], dim=1)
+    # sort on d + 0.0 (-0.0 -> +0.0, as the reference's comparator does),
+    # carry the original values
+    order = torch.sort(all_d + 0.0, dim=1, stable=True).indices[:, :L]
+    return (
+        torch.gather(all_ids, 1, order),
+        torch.gather(all_d, 1, order),
+        torch.gather(all_exp, 1, order),
+        keep,
+    )
+
+
+def quantize_int8(v: torch.Tensor):
+    """Per-vector symmetric int8 quantization: v ~ q * scale."""
+    amax = torch.clamp(torch.amax(torch.abs(v), dim=-1), min=1e-12)
+    scale = (amax / 127.0).float()
+    q = torch.clamp(torch.round(v / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale

@@ -1,0 +1,21 @@
+"""Batched UDG search on torch tensors — the serving path."""
+from repro_torch.search.device_graph import (
+    DeviceGraph,
+    DeviceIndex,
+    device_graph_from_numpy,
+    export_device_graph,
+    pack_labels,
+    unpack_labels,
+)
+from repro_torch.search.batched import batched_udg_search, prepare_states
+
+__all__ = [
+    "DeviceGraph",
+    "DeviceIndex",
+    "batched_udg_search",
+    "device_graph_from_numpy",
+    "export_device_graph",
+    "pack_labels",
+    "prepare_states",
+    "unpack_labels",
+]

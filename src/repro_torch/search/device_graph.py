@@ -1,0 +1,320 @@
+"""Device-resident UDG: padded dense arrays exported from the host index.
+
+The host adjacency (ragged lists of labeled tuples) is exported as
+
+  nbr     [n, E] int32       neighbor id per tuple slot (-1 = padding)
+  plabels [n, E, 2] uint32   bit-packed canonical rank rectangles — the
+                             default layout: (l, r) in the two 16-bit
+                             halves of word 0, (b, e) in word 1
+  labels  [n, E, 4] int32    the unpacked layout, kept only when a grid
+                             exceeds the 16-bit rank budget (or the caller
+                             forces ``packed_labels=False``)
+
+with E = max labeled degree rounded up to a lane multiple, plus the entry
+table, the canonical grids, cached per-node squared norms, optional int8
+storage with per-vector scales, and the planner's selectivity estimator.
+The host arrays are numpy and equal the JAX package's export array by array.
+
+``DeviceGraph.device(device)`` stages the search-visible arrays as torch
+tensors, memoized per device. On a device the packed words are carried as
+int32 bit patterns (torch has no shifts for uint32). Only the packed layout
+is searchable in this port: the int32 fused branch and the ``fused=False``
+baseline are not ported yet (ROADMAP A), so ``serving_labels`` raises for
+an export that fell back to int32 labels.
+
+``device_graph_from_numpy`` rebuilds a ``DeviceGraph`` from another
+export's arrays unchanged, so two implementations can search the same index.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import numpy as np
+import torch
+
+from repro_torch.core.entry import EntryTable
+from repro_torch.core.graph import LabeledGraph
+from repro_torch.device import resolve_device
+
+# canonical ranks are packed two-per-word in 16-bit halves; a grid axis
+# with more distinct values than this cannot use the packed layout
+RANK_LIMIT = 1 << 16
+
+
+def pack_labels(labels: np.ndarray) -> np.ndarray:
+    """Bit-pack int32 rank rectangles ``[..., 4]`` (l, r, b, e) into uint32
+    word pairs ``[..., 2]``: word 0 = ``l | r << 16``, word 1 =
+    ``b | e << 16``. Raises ``ValueError`` when any rank is negative or
+    >= 2^16 (use the int32 layout instead — see ``export_device_graph``)."""
+    labels = np.asarray(labels)
+    if labels.shape[-1] != 4:
+        raise ValueError(f"expected trailing dim 4, got {labels.shape}")
+    if labels.size and (labels.min() < 0 or labels.max() >= RANK_LIMIT):
+        raise ValueError(
+            f"rank out of 16-bit range [0, {RANK_LIMIT}): "
+            f"min={labels.min() if labels.size else 0} "
+            f"max={labels.max() if labels.size else 0}"
+        )
+    u = labels.astype(np.uint32)
+    out = np.empty(labels.shape[:-1] + (2,), dtype=np.uint32)
+    out[..., 0] = u[..., 0] | (u[..., 1] << 16)
+    out[..., 1] = u[..., 2] | (u[..., 3] << 16)
+    return out
+
+
+def unpack_labels(plabels: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`pack_labels`: uint32 ``[..., 2]`` -> int32
+    ``[..., 4]`` rectangles. Bitwise round-trip."""
+    plabels = np.asarray(plabels, dtype=np.uint32)
+    if plabels.shape[-1] != 2:
+        raise ValueError(f"expected trailing dim 2, got {plabels.shape}")
+    out = np.empty(plabels.shape[:-1] + (4,), dtype=np.int32)
+    out[..., 0] = (plabels[..., 0] & 0xFFFF).astype(np.int32)
+    out[..., 1] = (plabels[..., 0] >> 16).astype(np.int32)
+    out[..., 2] = (plabels[..., 1] & 0xFFFF).astype(np.int32)
+    out[..., 3] = (plabels[..., 1] >> 16).astype(np.int32)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceIndex:
+    """Torch views of a ``DeviceGraph``'s search-visible arrays on one device.
+
+    ``table`` is the storage the distance kernels score (int8 ``vec_q`` when
+    quantized, else f32 ``vectors``); ``labels`` is the packed ``[n, E, 2]``
+    table as int32 bit patterns when the export packed, else the int32
+    ``[n, E, 4]`` layout."""
+
+    table: torch.Tensor              # [n, d] f32 or int8
+    scales: torch.Tensor | None      # [n] f32 (int8 storage only)
+    norms: torch.Tensor              # [n] f32 cached ‖v‖²
+    nbr: torch.Tensor                # [n, E] int32
+    labels: torch.Tensor             # [n, E, 2] or [n, E, 4] int32
+
+    @property
+    def packed(self) -> bool:
+        return self.labels.shape[-1] == 2
+
+
+@dataclasses.dataclass
+class DeviceGraph:
+    vectors: np.ndarray        # [n, d] f32
+    nbr: np.ndarray            # [n, E] int32, -1 padded
+    labels: np.ndarray | None  # [n, E, 4] int32 — None when packed-only
+    U_X: np.ndarray            # [num_x] f64 canonical X values
+    U_Y: np.ndarray            # [num_y] f64 canonical Y values
+    entry_node: np.ndarray     # [num_x] int32 (-1 = none)
+    entry_y_rank: np.ndarray   # [num_x] int32
+    relation: str
+    norms: np.ndarray | None = None   # [n] f32 cached ‖v‖² of the rows the
+                                      # search scores (dequantized if int8);
+                                      # every export carries them
+    vec_q: np.ndarray | None = None   # [n, d] int8 quantized storage
+    scales: np.ndarray | None = None  # [n] f32 per-vector dequant scales
+    planner: object | None = None     # repro_torch.exec.SelectivityEstimator
+    plabels: np.ndarray | None = None  # [n, E, 2] uint32 bit-packed labels
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.nbr.shape[1])
+
+    def labels_i32(self) -> np.ndarray:
+        """The int32 ``[n, E, 4]`` rectangle view — the stored array when
+        the export fell back, otherwise unpacked (and cached) from the
+        packed words."""
+        if self.labels is not None:
+            return self.labels
+        out = self._cache.get("labels_i32")
+        if out is None:
+            out = self._cache["labels_i32"] = unpack_labels(self.plabels)
+        return out
+
+    def device(self, device=None) -> DeviceIndex:
+        """Memoized torch bundle of the search-visible arrays on ``device``
+        (``None`` = the CUDA card)."""
+        dev = resolve_device(device)
+        key = ("device", str(dev))
+        out = self._cache.get(key)
+        if out is None:
+            if self.vec_q is not None:
+                table, scales = self.vec_q, self.scales
+            else:
+                table, scales = self.vectors, None
+            lab = self.plabels.view(np.int32) if self.plabels is not None else self.labels
+
+            def put(a):
+                return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+            out = self._cache[key] = DeviceIndex(
+                table=put(table), scales=put(scales), norms=put(self.norms),
+                nbr=put(self.nbr), labels=put(lab),
+            )
+        return out
+
+    def serving_labels(self, *, device=None) -> torch.Tensor:
+        """The device label view a search runs with: the packed words.
+        Searching the int32 layout (an export with ``packed_labels=False``
+        or one that fell back) is not ported yet and raises
+        ``NotImplementedError``."""
+        if self.plabels is None:
+            raise NotImplementedError(
+                "the int32-label search branch is not ported yet (ROADMAP A); "
+                "export with packed labels"
+            )
+        return self.device(device).labels
+
+    def nbytes_by_component(self) -> dict:
+        """Host bytes of each index component (the at-rest layout: packed
+        labels when available; the lazily unpacked cache is not counted)."""
+        lab = self.plabels if self.plabels is not None else self.labels
+        out = {
+            "vectors": self.vectors.nbytes,
+            "nbr": self.nbr.nbytes,
+            "labels": lab.nbytes if lab is not None else 0,
+            "grids": self.U_X.nbytes + self.U_Y.nbytes,
+            "entry": self.entry_node.nbytes + self.entry_y_rank.nbytes,
+        }
+        if self.norms is not None:
+            out["norms"] = self.norms.nbytes
+        if self.vec_q is not None:
+            out["vec_q"] = self.vec_q.nbytes
+        if self.scales is not None:
+            out["scales"] = self.scales.nbytes
+        return out
+
+
+def export_device_graph(
+    g: LabeledGraph,
+    et: EntryTable | None = None,
+    *,
+    lane: int = 8,
+    node_capacity: int | None = None,
+    edge_capacity: int | None = None,
+    quantize_int8: bool = False,
+    planner_buckets: int = 64,
+    packed_labels: bool | None = None,
+    device=None,
+) -> DeviceGraph:
+    """Pad the host adjacency into dense arrays (E = max degree, lane-aligned)
+    and stage the search-visible ones on ``device`` (``None`` = the card).
+
+    ``node_capacity``/``edge_capacity`` fix the padded dims to static sizes.
+    Rows whose labeled degree exceeds ``edge_capacity`` keep their earliest
+    tuples (the threshold sweep's; patch tuples come last and go first).
+    ``packed_labels``: ``None`` packs when both grids fit 16-bit ranks and
+    falls back to int32 with a warning otherwise; ``True`` requires the
+    packed layout; ``False`` forces int32. With ``quantize_int8`` the export
+    carries int8 storage and per-vector scales, and the cached norms are of
+    the dequantized rows.
+    """
+    # the estimator lives in the exec layer, whose package imports the search
+    # layer: import it here to keep the package import acyclic
+    from repro_torch.exec.estimator import SelectivityEstimator
+
+    if et is None:
+        et = EntryTable(g)
+    degs = [g.adj[u].size for u in range(g.n)]
+    E = max(degs) if degs else 1
+    E = max(((E + lane - 1) // lane) * lane, lane)
+    if edge_capacity is not None:
+        E = edge_capacity
+    n_pad = g.n if node_capacity is None else node_capacity
+    if n_pad < g.n:
+        raise ValueError(f"node_capacity {n_pad} < graph size {g.n}")
+    nbr = np.full((n_pad, E), -1, dtype=np.int32)
+    labels = np.zeros((n_pad, E, 4), dtype=np.int32)
+    for u in range(g.n):
+        nb, l, r, b, e = g.tuples(u)
+        k = min(nb.shape[0], E)
+        nbr[u, :k] = nb[:k]
+        labels[u, :k, 0] = l[:k]
+        labels[u, :k, 1] = r[:k]
+        labels[u, :k, 2] = b[:k]
+        labels[u, :k, 3] = e[:k]
+    vectors = g.vectors
+    if n_pad > g.n:
+        vectors = np.zeros((n_pad, g.dim), dtype=np.float32)
+        vectors[: g.n] = g.vectors
+    vec_q = scales = None
+    if quantize_int8:
+        v32 = np.asarray(vectors, dtype=np.float32)
+        amax = np.maximum(np.max(np.abs(v32), axis=1), 1e-12)
+        scales = (amax / 127.0).astype(np.float32)
+        vec_q = np.clip(np.round(v32 / scales[:, None]), -127, 127).astype(np.int8)
+        scored = vec_q.astype(np.float32) * scales[:, None]
+    else:
+        scored = np.asarray(vectors, dtype=np.float32)
+    norms = np.sum(scored * scored, axis=1, dtype=np.float32)
+    ent = et.device_arrays()
+    num_x, num_y = g.space.U_X.shape[0], g.space.U_Y.shape[0]
+    fits = num_x <= RANK_LIMIT and num_y <= RANK_LIMIT
+    plabels = None
+    if packed_labels is None:
+        if fits:
+            plabels = pack_labels(labels)
+            labels = None
+        else:
+            warnings.warn(
+                f"canonical grid ({num_x} x {num_y}) exceeds the 16-bit "
+                f"rank budget ({RANK_LIMIT}); falling back to the int32 "
+                "label layout", RuntimeWarning, stacklevel=2,
+            )
+    elif packed_labels:
+        if not fits:
+            raise ValueError(
+                f"packed_labels=True but canonical grid ({num_x} x {num_y})"
+                f" exceeds the 16-bit rank budget ({RANK_LIMIT})"
+            )
+        plabels = pack_labels(labels)
+        labels = None
+    dg = DeviceGraph(
+        vectors=vectors,
+        nbr=nbr,
+        labels=labels,
+        U_X=g.space.U_X.copy(),
+        U_Y=g.space.U_Y.copy(),
+        entry_node=ent["entry_node"],
+        entry_y_rank=ent["entry_y_rank"],
+        relation=g.relation.name,
+        norms=norms,
+        vec_q=vec_q,
+        scales=scales,
+        planner=SelectivityEstimator.from_graph(g, buckets=planner_buckets),
+        plabels=plabels,
+    )
+    dg.device(device)
+    return dg
+
+
+# the DeviceGraph fields device_graph_from_numpy takes (None where absent)
+GRAPH_FIELDS = (
+    "vectors", "nbr", "labels", "plabels", "U_X", "U_Y", "entry_node",
+    "entry_y_rank", "relation", "norms", "vec_q", "scales",
+)
+
+
+def device_graph_from_numpy(arrays: dict, *, device=None) -> DeviceGraph:
+    """A ``DeviceGraph`` over another export's arrays, taken unchanged.
+
+    ``arrays`` holds the export's fields (``GRAPH_FIELDS``; absent or
+    ``None`` where the export has none, e.g. ``vec_q`` of an f32 export)
+    and the planner's (``exec.estimator.STATE_FIELDS``; without ``cum`` the
+    graph has no planner). The device bundle is staged on ``device``
+    (``None`` = the card)."""
+    from repro_torch.exec.estimator import SelectivityEstimator
+
+    def arr(name):
+        v = arrays.get(name)
+        return None if v is None else np.array(v)
+
+    fields = {f: arr(f) for f in GRAPH_FIELDS if f != "relation"}
+    if fields["plabels"] is not None:
+        fields["plabels"] = fields["plabels"].view(np.uint32)
+    planner = None
+    if arrays.get("cum") is not None:
+        planner = SelectivityEstimator.from_state(arrays)
+    dg = DeviceGraph(relation=str(arrays["relation"]), planner=planner, **fields)
+    dg.device(device)
+    return dg

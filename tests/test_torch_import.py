@@ -1,0 +1,41 @@
+"""``import repro_torch`` loads neither jax nor any module of the JAX package.
+
+Checked in a fresh interpreter: this test process has imported jax already.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), ",".join(bad))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env, capture_output=True,
+                         text=True, check=True).stdout.split()
+    assert int(out[0]) >= 20                       # every submodule was imported
+    assert len(out) == 1, f"loaded: {out[1]}"
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device("cuda")
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
