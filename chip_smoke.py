@@ -1,26 +1,42 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's planned query path on one CUDA card and check it.
+"""Run the PyTorch port on one CUDA card and check it.
 
     python3 chip_smoke.py [--n N] [--profile] [--out DIR]
 
-Phases, each of which exits non-zero when it fails:
+Phases, each of which exits non-zero when it fails. Every path phase sets the
+kernel launch counts to 0 just before it and reads them just after:
 
 1. card: requires CUDA; prints ``nvidia-smi``'s name and power limit;
 2. build: compiles the port's CUDA kernels (``src/repro_torch/kernels/csrc``)
-   with nvcc for sm_90a, one process per source;
+   with nvcc for sm_90a, one process per source, all at once;
 3. index: a seeded synthetic corpus at the serving deployment's shard
-   (``configs/udg_serve``: d=768, containment), built by the port's host
-   constructor (M=16, Z=128, K_p=8) and exported to the card;
-4. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (B=4096, the export's E, M in {1, 2}, L in {64, 128},
-   brute C=256; f32 and int8 tables) and on edge cases, then timed with CUDA
-   events beside its plain version and its bound;
-5. main path: ``execute_batch(plan="auto")`` over 4096-query batches with
+   (``configs/udg_serve``: d=768, containment), built by
+   ``build_index(batched=None, device="cuda")`` -- the wave constructor, its
+   broad searches on the card (B3) -- with M=16, Z=128, K_p=8, and exported
+   to the card;
+4. constructor parity: at a small size (2048 x 128, M=8, Z=32, K_p=4,
+   wave=128) the wave build on the card and on the CPU give identical graphs,
+   and the wave graph's recall@10 is within 0.5 pt of the sequential graph's;
+5. kernels: each kernel against its plain PyTorch version on the card, at the
+   paths' shapes (B=4096, the export's E, M in {1, 2}, L in {64, 128}, brute
+   C=256, f32 and int8 tables; the unfused scorer on the dense [B, E, D]
+   pre-gather; the distance matrices at ``bench_kernels.py``'s shapes and one
+   4096 x 4096 x 768 block) and on edge cases, then timed with CUDA events
+   beside its plain version, its bound and, where one exists, a library call;
+6. main path: ``execute_batch(plan="auto")`` over 4096-query batches with
    selectivities that give every plan rows, plus one ``plan="brute"`` batch;
-   every kernel must have launched there; QPS, latency, plan mix, recall@10
+   B1-B3 must have launched there; QPS, latency, plan mix, recall@10
    against exact ground truth;
-6. parity: 128 of those queries on the CPU (plain versions) and on the card,
-   held equal under the tie rule of ``repro_torch.data.parity``.
+7. unfused path: ``execute_batch(plan="auto", fused=False)`` and
+   ``batched_udg_search(fused=False)`` on the same batch: B4 must launch, ids
+   equal the fused path's under the tie rule;
+8. int32 path: ``search_core`` over the export's int32 labels: B3 must
+   launch, ids and distances equal the packed path's;
+9. distance matrices: exact distances of 1024 queries to the corpus through
+   ``ops.l2dist`` (B5) and to its int8 copy through ``ops.int8_l2dist`` (B6);
+   the exact filtered top-10 equals the host ground truth under the tie rule;
+10. parity: 128 of the main path's queries on the CPU (plain versions) and on
+    the card, held equal under the tie rule of ``repro_torch.data.parity``.
 
 Prints one JSON object per line; the line before the last is the kernel
 table and the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -31,6 +47,7 @@ defaults to ``build/chip_smoke``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,21 +66,19 @@ from repro_torch.core import build_index  # noqa: E402
 from repro_torch.data import generate_queries, ground_truth, make_dataset, make_queries_vectors  # noqa: E402
 from repro_torch.data.parity import mismatches  # noqa: E402
 from repro_torch.data.workloads import QuerySet, recall_at_k  # noqa: E402
-from repro_torch.exec import execute_batch  # noqa: E402
-from repro_torch.exec.plan import PLAN_NAMES  # noqa: E402
+from repro_torch.core import EntryTable, build_udg  # noqa: E402
+from repro_torch.exec import execute_batch, export_planned_graph  # noqa: E402
+from repro_torch.exec.plan import PLAN_NAMES, default_planner_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.search import batched as search_mod  # noqa: E402
-from repro_torch.search import export_device_graph  # noqa: E402
-from repro_torch.search.batched import prepare_states_extended  # noqa: E402
+from repro_torch.search import batched_udg_search  # noqa: E402
+from repro_torch.search.batched import prepare_states, prepare_states_extended, search_core  # noqa: E402
 
 DIM, BATCH, BEAM, K = CONFIG.dim, CONFIG.batch, CONFIG.beam, CONFIG.k
-FULL_N = CONFIG.n_per_shard   # one shard of the serving deployment
+FULL_N = CONFIG.n_per_shard   # one shard of the serving deployment, the default n
 TIMED_BATCHES = 5
-# the corpus this script builds: the port's sequential host constructor took
-# 1065 s for 65536 objects on the host CPU of an H100 machine (max labeled
-# degree 714), past this script's 1200 s budget, so the default halves n
-# (d, beam, k and the batch stay as deployed; E is the export's own)
-SMOKE_N = 32768
+PARITY_BUILD = dict(n=2048, d=128, M=8, Z=32, K_p=4, wave=128)   # constructor parity
+L2_SHAPES = ((64, 512, 128), (256, 4096, 128), (64, 512, 768), (4096, 4096, 768))
 SELECTIVITIES = (0.003, 0.01, 0.03, 0.1, 0.3)   # query i gets SELECTIVITIES[i % 5]
 BRUTE_SELECTIVITY = 0.003     # <= 256 valid objects at n <= 65536
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
@@ -104,17 +119,27 @@ def bound(nbytes: float, nops: float, ops_rate: float) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def close(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Max abs error over finite entries; raises unless the +inf positions
-    are equal and finite values agree within rtol=1e-5, atol=1e-5·max(1,|d|)."""
-    fin = torch.isfinite(want)
-    require(torch.equal(torch.isfinite(got), fin), "+inf positions differ from the plain version")
-    g, w = got[fin].double(), want[fin].double()
-    if g.numel() == 0:
-        return 0.0
-    err = (g - w).abs()
-    tol = 1e-5 * torch.clamp(w.abs(), min=1.0) + 1e-5 * w.abs()
-    require(not bool((err > tol).any()), f"distance error {err.max().item():.3g} beyond tolerance")
+def reset_counts() -> None:
+    ops.reset_launches()
+    for key in search_mod.LOOP_STATS:
+        search_mod.LOOP_STATS[key] = 0
+
+
+def bitwise(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Raises unless the two f32 tensors are equal bit for bit; returns 0.0."""
+    require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+            f"{what} differs from the plain version")
+    return 0.0
+
+
+def matrix_close(got, want, q, c) -> float:
+    """Max abs error; raises beyond |got - want| <= 1e-5·(|q|² + |c|²) + 1e-6
+    (the expanded form cancels, so its error follows the norms)."""
+    qn = torch.sum(q.double() ** 2, dim=1)[:, None]
+    cn = torch.sum(c.double() ** 2, dim=1)[None, :]
+    err = (got.double() - want.double()).abs()
+    require(bool((err <= 1e-5 * (qn + cn) + 1e-6).all()),
+            f"distance matrix error {err.max().item():.3g} beyond tolerance")
     return err.max().item()
 
 
@@ -153,7 +178,7 @@ def pack(lab: torch.Tensor) -> torch.Tensor:
 def check_scalar_rows(dev) -> list:
     """Both scorers' scalar row path (vec = 0: D not a multiple of one
     16-byte load, or a table that is not 16-byte aligned), int8 tail loop
-    included, against the plain versions on small random inputs."""
+    included, bitwise against the plain versions on small random inputs."""
     gen = torch.Generator(device=dev).manual_seed(1)
     n, B, E, M, V = 300, 16, 24, 2, 40
     W = (n + 31) // 32
@@ -182,19 +207,21 @@ def check_scalar_rows(dev) -> list:
         table.copy_(rows)
         require(ops._table_args(table, norms, scales, q)[3] == 0, "the scalar row path not taken")
         args = (table, plabels, norms, q, cur, cand, state, visited)
-        err = close(ops.filter_dist_gather_packed(*args, scales=scales),
-                    ref.filter_dist_gather_packed_ref(*args, scales))
+        err = bitwise(ops.filter_dist_gather_packed(*args, scales=scales),
+                      ref.filter_dist_gather_packed_ref(*args, scales), "scalar-row packed scorer")
         args = (table, norms, q, bf, rect, state, visited)
-        err = max(err, close(ops.filter_dist_gather(*args, scales=scales),
-                             ref.filter_dist_gather_ref(*args, scales)))
+        err = max(err, bitwise(ops.filter_dist_gather(*args, scales=scales),
+                               ref.filter_dist_gather_ref(*args, scales), "scalar-row gather scorer"))
         cases.append({"kernel": "filter_dist (scalar rows)", "table": dt, "D": D,
                       "offset": offset, "max_abs_err": err})
     return cases
 
 
 def check_kernels(dg, q, states, ep) -> dict:
-    """Every kernel against its plain version at the main path's shapes and
-    on edge cases; returns the timed table rows by kernel name. The scorer
+    """Every kernel against its plain version at the paths' shapes and on
+    edge cases (the scorers B1, B3, B4 bitwise: their plain versions sum in
+    the kernels' order; B2 bitwise; B5, B6 within ``matrix_close``'s bound);
+    returns the timed table rows by kernel name. The scorer
     expands each query's entry node (and, at M = 2, that node's first
     neighbour), as the search's first iterations do, so its candidates pass
     the label test at the search's own rate."""
@@ -226,7 +253,7 @@ def check_kernels(dg, q, states, ep) -> dict:
             args = (table, di.labels, norms, q, cur, cand, states, visited)
             got = ops.filter_dist_gather_packed(*args, scales=scales)
             want = ref.filter_dist_gather_packed_ref(*args, scales)
-            err = close(got, want)
+            err = bitwise(got, want, "filter_dist_gather_packed")
             require(bool(torch.isinf(got[0]).all()), "an all-padding row scored")
             open_out = ref.filter_dist_gather_packed_ref(*args[:7], torch.zeros_like(visited), scales)
             label_key = (cur.long()[:, :, None] * E + torch.arange(E, device=dev)).reshape(B, M * E)
@@ -299,12 +326,12 @@ def check_kernels(dg, q, states, ep) -> dict:
     for dt, (table, norms, scales) in tables.items():
         # general label + visited semantics first, then the brute shape
         args = (table, norms, q, bf, rand_lab, rand_st, visited)
-        close(ops.filter_dist_gather(*args, scales=scales),
-              ref.filter_dist_gather_ref(*args, scales))
+        bitwise(ops.filter_dist_gather(*args, scales=scales),
+                ref.filter_dist_gather_ref(*args, scales), "filter_dist_gather")
         args = (table, norms, q, bf, zeros_lab, zeros_st, zeros_vis)
         got = ops.filter_dist_gather(*args, scales=scales)
         want = ref.filter_dist_gather_ref(*args, scales)
-        err = close(got, want)
+        err = bitwise(got, want, "filter_dist_gather")
         require(bool(torch.isinf(got[0]).all()), "an all-padding row scored")
         case = {
             "kernel": "filter_dist_gather", "table": dt, "B": B, "C": V, "D": D,
@@ -320,8 +347,103 @@ def check_kernels(dg, q, states, ep) -> dict:
         if dt == "f32":
             rows["filter_dist_gather"] = case
     cases += check_scalar_rows(dev)
+    rows.update(check_dense_scorer(dg, q, states, ep, cases))
+    rows.update(check_distance_matrices(di.table, cases))
     torch.cuda.synchronize()
     RECORD["kernel_cases"] = cases
+    return rows
+
+
+def check_dense_scorer(dg, q, states, ep, cases) -> dict:
+    """B4 at the unfused path's shapes: the first iteration's dense
+    pre-gather of each query's entry node's neighbours ``[B, E, D]`` with
+    their int32 rectangles, bitwise against the plain version; then the edge
+    cases (odd D, an all-invalid label tile, ids -1)."""
+    dev = q.device
+    di = dg.device(dev)
+    n, D = di.table.shape
+    B = q.shape[0]
+    first = ep.clamp(min=0).long()
+    nb = di.nbr[first].clone()
+    nb[0] = -1                                            # an all-padding row
+    nb[1, ::3] = -1                                       # scattered padding
+    cand = di.table[nb.clamp(0, n - 1).long()]
+    labels = dg.device_labels_i32(dev)[first].contiguous()
+    args = (q, cand, labels, states, nb)
+    got = ops.filter_dist(*args)
+    want = ref.filter_dist_ref(*args)
+    require(bool(torch.isinf(got[0]).all()), "an all-padding row scored")
+    passed = torch.isfinite(want)
+    E = nb.shape[1]
+    nbytes = B * E * (4 + 16 + 4) + int(passed.sum()) * D * 4 + B * (D * 4 + 8)
+    b_ms, b_by = bound(nbytes, int(passed.sum()) * 4 * D, FP32_OPS_PER_S)
+    case = {
+        "kernel": "filter_dist", "B": B, "E": E, "D": D, "max_abs_err": bitwise(got, want, "filter_dist"),
+        "scored": int(passed.sum()),
+        "ms": time_ms(lambda: ops.filter_dist(*args)),
+        "plain_ms": time_ms(lambda: ref.filter_dist_ref(*args), reps=5, warm=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+    }
+    cases.append(case)
+    del cand, got, want
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for b, e, d in ((3, 17, 8), (5, 200, 131), (64, 33, 770)):
+        qq = torch.randn((b, d), generator=gen, device=dev)
+        cc = torch.randn((b, e, d), generator=gen, device=dev)
+        lab = torch.randint(0, 12, (b, e, 4), generator=gen, device=dev, dtype=torch.int32)
+        lab[0] = torch.tensor([5, 4, 0, 11], dtype=torch.int32, device=dev)   # l > r: no tuple passes
+        st = torch.randint(0, 12, (b, 2), generator=gen, device=dev, dtype=torch.int32)
+        ids = torch.randint(-1, 40, (b, e), generator=gen, device=dev, dtype=torch.int32)
+        ids[1] = -1
+        out = ops.filter_dist(qq, cc, lab, st, ids)
+        require(bool(torch.isinf(out[:2]).all()), "an invalid label tile or id -1 scored")
+        cases.append({"kernel": "filter_dist (edge)", "B": b, "E": e, "D": d,
+                      "max_abs_err": bitwise(out, ref.filter_dist_ref(qq, cc, lab, st, ids),
+                                             "filter_dist edge case")})
+    return {"filter_dist": case}
+
+
+def check_distance_matrices(table, cases) -> dict:
+    """B5 and B6 at ``bench_kernels.py``'s shapes and one large block, rows
+    drawn from the corpus (f32; int8 quantized per row), and on edge cases
+    (ragged Bq/Bc/D, f16 input, odd D); ``library_ms`` is ``torch.cdist``
+    (TF32 off), on the dequantized rows for B6."""
+    dev = table.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    n = table.shape[0]
+    for bq, bc, d in L2_SHAPES:
+        q = table[torch.randint(0, n, (bq,), generator=gen, device=dev), :d].contiguous()
+        q = q + 0.1 * torch.randn(q.shape, generator=gen, device=dev)
+        c = table[torch.randint(0, n, (bc,), generator=gen, device=dev), :d].contiguous()
+        c8, sc = ref.quantize_int8(c)
+        deq = c8.float() * sc[:, None]
+        flops = 2 * bq * bc * d
+        for name, fn, plain, lib, cin, elt in (
+            ("l2dist", lambda: ops.l2dist(q, c), lambda: ref.l2dist_ref(q, c),
+             lambda: torch.cdist(q, c), c, 4),
+            ("int8_l2dist", lambda: ops.int8_l2dist(q, c8, sc),
+             lambda: ref.int8_l2dist_ref(q, c8, sc), lambda: torch.cdist(q, deq), deq, 1),
+        ):
+            err = matrix_close(fn(), plain(), q, cin)
+            nbytes = bq * d * 4 + bc * d * elt + bq * bc * 4 + (bc * 4 if elt == 1 else 0)
+            b_ms, b_by = bound(nbytes, flops, FP32_OPS_PER_S)
+            case = {"kernel": name, "Bq": bq, "Bc": bc, "D": d, "max_abs_err": err,
+                    "ms": time_ms(fn), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+                    "bound_ms": b_ms, "bound_by": b_by}
+            cases.append(case)
+            rows[name] = case            # the last shape, the large block, is the row
+    for bq, bc, d in ((37, 215, 70), (1, 1, 4), (130, 50, 33), (7, 65, 131)):
+        q = torch.randn((bq, d), generator=gen, device=dev)
+        c = torch.randn((bc, d), generator=gen, device=dev)
+        c8, sc = ref.quantize_int8(c)
+        err = max(matrix_close(ops.l2dist(q, c), ref.l2dist_ref(q, c), q, c),
+                  matrix_close(ops.l2dist(q.half(), c.half()), ref.l2dist_ref(q.half(), c.half()),
+                               q.half().float(), c.half().float()),
+                  matrix_close(ops.int8_l2dist(q, c8, sc), ref.int8_l2dist_ref(q, c8, sc), q,
+                               c8.float() * sc[:, None]))
+        cases.append({"kernel": "l2dist/int8_l2dist (edge, f32+f16+int8)", "Bq": bq, "Bc": bc,
+                      "D": d, "max_abs_err": err})
     return rows
 
 
@@ -358,9 +480,150 @@ def make_queries(n_q, s, t, sels, seed):
     return qv, s_q, t_q
 
 
+def constructor_parity() -> dict:
+    """The wave build on the card and on the CPU give identical graphs (the
+    same arithmetic to the bit, the same stable sorts); the wave graph's
+    recall@10 is within 0.5 pt of the sequential graph's."""
+    p = PARITY_BUILD
+    vecs, s, t = make_dataset(p["n"], p["d"], seed=5)
+    kw = dict(M=p["M"], Z=p["Z"], K_p=p["K_p"])
+    out = {**p}
+    graphs = {}
+    for name, extra in (("card", dict(batched=True, wave=p["wave"], device="cuda")),
+                        ("cpu", dict(batched=True, wave=p["wave"], device="cpu")),
+                        ("sequential", dict(batched=False))):
+        t0 = time.perf_counter()
+        graphs[name], rep = build_udg(vecs, s, t, CONFIG.relation, **kw, **extra)
+        out[f"{name}_build_s"] = round(time.perf_counter() - t0, 2)
+        out[f"{name}_tuples"] = rep.num_tuples
+    ga, gb = graphs["card"], graphs["cpu"]
+    same = ga.num_tuples == gb.num_tuples and all(
+        all(np.array_equal(x, y) for x, y in zip(ga.tuples(u), gb.tuples(u))) for u in range(ga.n))
+    require(same, "the wave build on the card and on the CPU gave different graphs")
+    qv = make_queries_vectors(256, p["d"], seed=6)
+    qs = ground_truth(generate_queries(qv, s, t, CONFIG.relation, 0.1, k=K, seed=7), vecs, s, t)
+    for name in ("card", "sequential"):
+        g = graphs[name]
+        dg = export_planned_graph(g, EntryTable(g), device="cuda")
+        ids, _ = batched_udg_search(dg, qs.vectors, qs.s_q, qs.t_q, k=K, beam=BEAM)
+        out[f"{name}_recall_at_10"] = recall_at_k(ids, qs)
+    require(out["card_recall_at_10"] >= out["sequential_recall_at_10"] - 0.005,
+            "the wave graph's recall@10 is more than 0.5 pt below the sequential graph's")
+    out["graphs_identical"] = True
+    return out
+
+
+def unfused_path(dg, qv, s_q, t_q) -> dict:
+    """``execute_batch(fused=False)`` and ``batched_udg_search(fused=False)``
+    at batch 4096 against the same calls fused: ids equal under the tie rule
+    and distances within the reference's ``atol=1e-4``
+    (``tests/test_packed_labels.py:166-170``; the export's norms are the ones
+    the unfused scorer recomputes), and B4 launched. The unfused executor
+    widens with expand 1, as the reference's does, so the fused baseline
+    takes ``wide_expand=1`` too."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    config = dataclasses.replace(default_planner_config(), wide_expand=1)
+    fused_auto = execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto", config=config)
+    fused_graph = batched_udg_search(dg, qv, s_q, t_q, k=K, beam=BEAM)
+    reset_counts()
+    t0 = time.perf_counter()
+    auto = execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto", fused=False,
+                         config=config)
+    auto_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = batched_udg_search(dg, qv, s_q, t_q, k=K, beam=BEAM, fused=False)
+    graph_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    loop = dict(search_mod.LOOP_STATS)
+    require(launches["filter_dist"] > 0, "B4 never launched on the unfused path")
+    errs = []
+    for name, got, want in (("auto", auto, fused_auto), ("graph", graph, fused_graph)):
+        bad = mismatches(*want, *got)
+        require(not bad, f"unfused {name} vs fused: {bad[:5]}")
+        fin = np.isfinite(want[1])
+        errs.append(float(np.max(np.abs(got[1][fin] - want[1][fin]), initial=0.0)))
+        require(errs[-1] <= 1e-4, f"unfused {name} distances off by {errs[-1]}")
+    emit({"unfused_path": {
+        "batch": len(qv), "auto_batch_ms": auto_s * 1e3, "graph_batch_ms": graph_s * 1e3,
+        "ids_equal": bool(np.array_equal(auto[0], fused_auto[0]) and np.array_equal(graph[0], fused_graph[0])),
+        "max_abs_err": max(errs), "launches": launches, "loop_iterations": loop["iterations"],
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }})
+    return launches
+
+
+def int32_path(dg, qv, s_q, t_q) -> dict:
+    """``search_core`` over the export's int32 labels (the branch an export
+    over a grid too wide for 16-bit ranks runs): the gather scorer (B3) with
+    the same arithmetic as the packed scorer, so ids and distances equal the
+    packed path's bit for bit."""
+    di = dg.device()
+    states, ep = prepare_states(dg, s_q, t_q)
+    args = (di.table, di.nbr)
+    rest = (torch.as_tensor(qv, device="cuda"), torch.as_tensor(states, device="cuda"),
+            torch.as_tensor(ep, device="cuda"))
+    kw = dict(k=K, beam=BEAM, max_iters=2 * BEAM, norms=di.norms, scales=di.scales)
+    t0 = time.perf_counter()
+    ids_p, d_p = search_core(*args, di.labels, *rest, **kw)
+    torch.cuda.synchronize()
+    packed_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    ids_i, d_i = search_core(*args, dg.device_labels_i32(), *rest, **kw)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    require(launches["filter_dist_gather"] > 0, "B3 never launched on the int32 path")
+    require(torch.equal(ids_i, ids_p), "int32 path ids differ from the packed path's")
+    require(torch.equal(d_i.view(torch.int32), d_p.view(torch.int32)),
+            "int32 path distances differ from the packed path's")
+    emit({"int32_path": {"batch": len(qv), "batch_ms": batch_s * 1e3,
+                         "packed_batch_ms": packed_s * 1e3, "ids_equal": True,
+                         "launches": launches}})
+    return launches
+
+
+def distance_matrix_path(dg, qv, s_q, t_q, vecs, s, t, gt_ids) -> dict:
+    """The queries' exact distances to the whole corpus through ``ops.l2dist``
+    (B5) and to its int8 copy through ``ops.int8_l2dist`` (B6), masked to each
+    query's valid set: the exact top-10 must equal the host ground truth under
+    the tie rule; the int8 top-10's recall against it is reported (>= 0.9)."""
+    from repro_torch.core.predicates import get_relation
+
+    rel = get_relation(CONFIG.relation)
+    table = torch.as_tensor(vecs, device="cuda")
+    q = torch.as_tensor(qv, device="cuda")
+    c8, sc = ref.quantize_int8(table)
+    valid = torch.as_tensor(np.stack([rel.valid_mask(s, t, a, b) for a, b in zip(s_q, t_q)]),
+                            device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    d = torch.where(valid, ops.l2dist(q, table), float("inf"))
+    d8 = torch.where(valid, ops.int8_l2dist(q, c8, sc), float("inf"))
+    # ascending, ties toward the smaller id (the ground truth's rule)
+    top = torch.sort(d, dim=1, stable=True)
+    top8 = torch.sort(d8, dim=1, stable=True).indices[:, :K]
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    ids = top.indices[:, :K].int().cpu().numpy()
+    dist = top.values[:, :K].cpu().numpy()
+    exact = np.sum((vecs[gt_ids].astype(np.float64) - qv[:, None].astype(np.float64)) ** 2, axis=-1)
+    bad = mismatches(gt_ids, exact, ids, dist)
+    require(not bad, f"l2dist top-10 vs host ground truth: {bad[:5]}")
+    rec8 = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(top8.cpu().numpy().tolist(),
+                                                                  gt_ids.tolist())]))
+    require(rec8 >= 0.9, f"int8 scan recall@10 {rec8}")
+    emit({"distance_matrices": {"queries": len(qv), "corpus": len(vecs), "scan_ms": scan_s * 1e3,
+                                "exact_topk_equal": bool(np.array_equal(ids, gt_ids)),
+                                "int8_recall_at_10": rec8, "launches": launches}})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=SMOKE_N, help="corpus size")
+    ap.add_argument("--n", type=int, default=FULL_N, help="corpus size")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one auto batch with torch.profiler")
@@ -389,36 +652,48 @@ def main(argv=None) -> int:
         f"== {name}.cu ==\n{log}\n" for name, log in _build.LOGS.items()))
     emit({"build": {"nvcc_s": round(build_s, 2), "sources": sorted(_build.ARGTYPES)}})
 
-    # 3. index
+    # 3. index: the wave constructor (batched=None at this n), searches on the card
     n = args.n
     if n != FULL_N:
-        emit({"reduced": {"n": [FULL_N, n], "why": "host build time"}})
+        emit({"reduced": {"n": [FULL_N, n], "why": "chosen with --n"}})
     vecs, s, t = make_dataset(n, DIM, seed=0)
+    reset_counts()
     t0 = time.perf_counter()
-    g, et, rep = build_index(vecs, s, t, CONFIG.relation, M=16, Z=128, K_p=8, batched=False)
-    host_build_s = time.perf_counter() - t0
+    g, et, rep = build_index(vecs, s, t, CONFIG.relation, M=16, Z=128, K_p=8,
+                             batched=None, device="cuda")
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    build_launches = dict(ops.LAUNCHES)
+    require(rep.waves > 0, "build_index(batched=None) did not run the wave constructor")
+    require(build_launches["filter_dist_gather"] > 0, "the wave build launched no B3")
     t0 = time.perf_counter()
-    dg = export_device_graph(g, et, device="cuda")
+    dg = export_planned_graph(g, et, device="cuda")
     export_s = time.perf_counter() - t0
     dev_bytes = {k: int(v.numel() * v.element_size())
                  for k, v in vars(dg.device()).items() if v is not None}
     emit({"index": {
-        "n": n, "d": DIM, "relation": CONFIG.relation, "host_build_s": round(host_build_s, 1),
+        "n": n, "d": DIM, "relation": CONFIG.relation, "build_s": round(index_s, 1),
+        "wave_search_s": round(rep.search_seconds, 1),
+        "host_sweep_s": round(index_s - rep.search_seconds, 1),
+        "waves": rep.waves, "broad_searches": rep.broad_searches,
+        "b3_launches": build_launches["filter_dist_gather"],
+        "loop_iterations": search_mod.LOOP_STATS["iterations"],
         "export_s": round(export_s, 2), "max_labeled_degree": int(max(g.adj[u].size for u in range(g.n))),
         "E": dg.max_degree, "tuples": rep.num_tuples, "device_bytes": dev_bytes,
     }})
 
-    # 4. kernels at the main path's shapes
+    # 4. constructor parity at a size where every build is short
+    emit({"constructor_parity": constructor_parity()})
+
+    # 5. kernels at the paths' shapes
     qv, s_q, t_q = make_queries(BATCH, s, t, SELECTIVITIES, 1)
     q_dev = torch.as_tensor(qv, device="cuda")
     states, ep, _ = prepare_states_extended(dg, s_q, t_q)
     rows = check_kernels(dg, q_dev, torch.as_tensor(states, device="cuda"),
                          torch.as_tensor(ep, device="cuda"))
 
-    # 5. main path: counts to 0 just before, read just after
-    ops.reset_launches()
-    for key in search_mod.LOOP_STATS:
-        search_mod.LOOP_STATS[key] = 0
+    # 6. main path: counts to 0 just before, read just after
+    reset_counts()
     lat = []
     for i in range(1 + TIMED_BATCHES):          # the first is warm-up
         t0 = time.perf_counter()
@@ -432,8 +707,8 @@ def main(argv=None) -> int:
     brute_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     loop = dict(search_mod.LOOP_STATS)
-    for name, cnt in launches.items():
-        require(cnt > 0, f"kernel {name} never launched on the main path")
+    for name in ("filter_dist_gather_packed", "beam_merge", "filter_dist_gather"):
+        require(launches[name] > 0, f"kernel {name} never launched on the main path")
     for res_ids, res_d in ((ids, d), (b_ids, b_d)):
         require(res_ids.shape == (BATCH, K) and res_d.shape == (BATCH, K), "result shape")
         # every query has >= k valid objects
@@ -470,7 +745,17 @@ def main(argv=None) -> int:
             lambda: execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto"),
             statistics.median(timed) * 1e3, out)})
 
-    # 6. parity: the same 128 queries on the CPU (plain versions) and the card
+    # 7. unfused path
+    path_launches = {"main": launches}
+    path_launches["unfused"] = unfused_path(dg, qv, s_q, t_q)
+    # 8. int32 path
+    path_launches["int32"] = int32_path(dg, qv, s_q, t_q)
+    # 9. distance matrices: exact (B5) and int8 (B6) scans of the corpus
+    path_launches["distance_matrices"] = distance_matrix_path(
+        dg, qv[:1024], s_q[:1024], t_q[:1024], vecs, s, t, gt["auto"])
+    RECORD["launches_by_path"] = path_launches
+
+    # 10. parity: the same 128 queries on the CPU (plain versions) and the card
     sub = slice(0, 128)
     ids_c, d_c, pb_c = execute_batch(dg, qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM,
                                      plan="auto", return_plans=True, device="cpu")
@@ -485,22 +770,30 @@ def main(argv=None) -> int:
         "max_abs_err": float(np.max(np.abs(np.where(np.isfinite(d_c), d_c - d_g, 0.0)))),
     }})
 
+    # kernel -> (source, the TPU kernel's pallas_call, the path its launches count on)
     replaces = {
         "filter_dist_gather_packed": ("src/repro_torch/kernels/csrc/filter_dist.cu",
-                                      "src/repro/kernels/filter_dist.py:404"),
+                                      "src/repro/kernels/filter_dist.py:404", "main"),
         "beam_merge": ("src/repro_torch/kernels/csrc/beam_merge.cu",
-                       "src/repro/kernels/beam_merge.py:273"),
+                       "src/repro/kernels/beam_merge.py:273", "main"),
         "filter_dist_gather": ("src/repro_torch/kernels/csrc/filter_dist.cu",
-                               "src/repro/kernels/filter_dist.py:266"),
+                               "src/repro/kernels/filter_dist.py:266", "main"),
+        "filter_dist": ("src/repro_torch/kernels/csrc/filter_dist.cu",
+                        "src/repro/kernels/filter_dist.py:104", "unfused"),
+        "l2dist": ("src/repro_torch/kernels/csrc/l2dist.cu",
+                   "src/repro/kernels/l2dist.py:72", "distance_matrices"),
+        "int8_l2dist": ("src/repro_torch/kernels/csrc/l2dist.cu",
+                        "src/repro/kernels/int8dist.py:72", "distance_matrices"),
     }
     table = []
-    for name, (src, tpu) in replaces.items():
+    for name, (src, tpu, path) in replaces.items():
         r = rows[name]
+        require(path_launches[path][name] > 0, f"kernel {name} never launched on the {path} path")
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": path_launches[path][name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None, "ok": True,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "ok": True,
         })
     RECORD["seconds"] = time.perf_counter() - t_all
     (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

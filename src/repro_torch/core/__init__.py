@@ -4,18 +4,21 @@ Public surface:
   - relations / dominance mapping: ``get_relation``, ``RELATIONS``,
     ``DominanceSpace`` (paper §II-A, §III, Table II, Lemma 1)
   - index: ``LabeledGraph`` (§IV-A), ``EntryTable``
-  - construction: ``build_udg`` (practical, §V; the sequential host
-    strategy only — the wave constructor waits for ROADMAP A6),
-    ``build_udg_exact`` (Algorithm 3 / Theorem 1), ``build_index``
+  - construction: ``build_udg`` (practical, §V; sequential host loop or
+    the wave constructor ``build_udg_batched`` / ``build_graphs_concurrent``,
+    whose searches run on a torch device), ``build_udg_exact``
+    (Algorithm 3 / Theorem 1), ``build_index``
   - search: ``udg_search`` (Algorithm 2), ``search_query``
 """
 from repro_torch.core.build import (
+    BATCHED_AUTO_MIN_N,
     BuildReport,
     build_dedicated_reference,
     build_index,
     build_udg,
     build_udg_exact,
 )
+from repro_torch.core.build_batched import build_graphs_concurrent, build_udg_batched
 from repro_torch.core.entry import ConstructionEntry, EntryTable
 from repro_torch.core.graph import GraphStats, LabeledGraph
 from repro_torch.core.patch import PATCH_VARIANTS, add_patch_edges
@@ -35,6 +38,7 @@ from repro_torch.core.prune import (
 from repro_torch.core.search import SearchStats, search_query, udg_search
 
 __all__ = [
+    "BATCHED_AUTO_MIN_N",
     "BuildReport",
     "ConstructionEntry",
     "DominanceSpace",
@@ -47,8 +51,10 @@ __all__ = [
     "SearchStats",
     "add_patch_edges",
     "build_dedicated_reference",
+    "build_graphs_concurrent",
     "build_index",
     "build_udg",
+    "build_udg_batched",
     "build_udg_exact",
     "canonical_state_for_query",
     "get_relation",

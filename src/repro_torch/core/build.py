@@ -7,12 +7,14 @@
 ``build_udg``           the practical constructor: one broad label-ignoring
                         search per insertion (pool size Z), threshold sweep
                         over the shared candidate pool, conservative /
-                        MaxLeap leap policies, and §V-B patch edges. Only
-                        the sequential host loop is ported: ``batched=None``
-                        and ``batched=False`` both run it, and
-                        ``batched=True`` raises ``NotImplementedError``
-                        until the wave-pipelined device constructor is
-                        ported (ROADMAP A6).
+                        MaxLeap leap policies, and §V-B patch edges. Two
+                        execution strategies share this entry point —
+                        ``batched=False`` is the sequential host loop (the
+                        parity oracle), ``batched=True`` the wave-pipelined
+                        constructor (``repro_torch.core.build_batched``,
+                        its searches on a torch device), and the default
+                        ``batched=None`` picks batched at or above
+                        ``BATCHED_AUTO_MIN_N`` objects, as the reference.
 ``build_dedicated_reference``
                         the per-state reference constructor used by the
                         Theorem 1 test.
@@ -21,12 +23,6 @@ Unit conventions, everywhere in this module: ``a`` / ``c`` / ``x_R`` /
 ``x_leap`` and all label rectangle fields are canonical *ranks* (indices
 into ``U_X`` / ``U_Y``, see ``LabeledGraph``), never raw interval floats;
 distances are squared L2 over raw embedding vectors.
-
-This is a numpy copy of the JAX package's host constructor with one
-deliberate departure: the reference's ``build_udg(batched=None)`` switches to
-its JAX wave constructor at n >= 4096 objects, while this copy always runs
-the sequential loop. So the graph built here equals the reference's
-``build_index(..., batched=False)`` at every n.
 """
 from __future__ import annotations
 
@@ -43,6 +39,11 @@ from repro_torch.core.prune import prune, squared_dists
 from repro_torch.core.search import udg_search
 
 LEAP_POLICIES = ("conservative", "maxleap")
+
+# build_udg(batched=None) auto-selects the wave-pipelined constructor at or
+# above this many objects; below it, per-wave launch overhead beats the
+# host loop's simplicity.
+BATCHED_AUTO_MIN_N = 4096
 
 
 @dataclass
@@ -68,6 +69,7 @@ class BuildReport:
     broad_searches: int
     index_bytes: int
     waves: int = 0
+    search_seconds: float = 0.0   # batched: time in the wave device searches
 
 
 def _exact_candidates(
@@ -173,6 +175,7 @@ def build_udg(
     wave: int = 256,
     pad_nodes: int | None = None,
     use_ref: bool = True,
+    device=None,
 ) -> Tuple[LabeledGraph, BuildReport]:
     """Practical UDG constructor (paper §V-A + §V-B).
 
@@ -188,19 +191,27 @@ def build_udg(
     launch per ``wave`` objects, intra-wave candidates by exact brute
     force), so the graphs are near-identical but not bit-identical —
     parity is pinned by ``tests/test_batched_build.py`` and quantified in
-    ``BENCH_build.json``. In this package only the sequential strategy
-    exists: ``batched=None`` means sequential, ``batched=True`` raises
-    ``NotImplementedError`` (ROADMAP A6), and ``wave``/``pad_nodes``/
-    ``use_ref`` are accepted for signature parity and ignored.
+    ``BENCH_build.json``. ``batched=None`` auto-selects: batched at
+    n >= ``BATCHED_AUTO_MIN_N``, sequential below. ``wave``/``pad_nodes``/
+    ``device`` configure the batched path (see
+    ``repro_torch.core.build_batched.build_udg_batched``; ``device=None`` is
+    the card) and are ignored by the sequential one. ``use_ref`` is accepted
+    for signature parity with the reference and ignored.
     """
     if leap not in LEAP_POLICIES:
         raise ValueError(f"leap must be one of {LEAP_POLICIES}")
     if patch not in PATCH_VARIANTS:
         raise ValueError(f"patch must be one of {PATCH_VARIANTS}")
+    n_obj = int(np.asarray(vectors).shape[0])
+    if batched is None:
+        batched = n_obj >= BATCHED_AUTO_MIN_N
     if batched:
-        raise NotImplementedError(
-            "the batched wave constructor is not ported yet (ROADMAP A6); "
-            "use batched=False"
+        from repro_torch.core.build_batched import build_udg_batched
+
+        return build_udg_batched(
+            vectors, s, t, relation, M=M, Z=Z, K_p=K_p,
+            leap=leap, patch=patch, wave=wave, pad_nodes=pad_nodes,
+            device=device,
         )
     t0 = time.perf_counter()
     g = LabeledGraph(vectors, s, t, relation)
@@ -277,7 +288,7 @@ def build_index(
     """Convenience wrapper: practical build + query-time entry table.
 
     Forwards ``**kwargs`` to :func:`build_udg` unchanged, including the
-    ``batched``/``wave``/``pad_nodes`` strategy knobs."""
+    ``batched``/``wave``/``pad_nodes``/``device`` strategy knobs."""
     g, rep = build_udg(vectors, s, t, relation, **kwargs)
     return g, EntryTable(g), rep
 

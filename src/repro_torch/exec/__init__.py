@@ -14,7 +14,13 @@ from repro_torch.exec.plan import (
     default_planner_config,
     plan_queries,
 )
-from repro_torch.exec.executor import execute_batch, mask_entry_points, planned_exec_core
+from repro_torch.exec.executor import (
+    execute_batch,
+    export_planned_graph,
+    mask_entry_points,
+    planned_exec_core,
+    planned_graph_from_numpy,
+)
 
 __all__ = [
     "PLAN_NAMES",
@@ -26,7 +32,9 @@ __all__ = [
     "default_planner_config",
     "effective_norms",
     "execute_batch",
+    "export_planned_graph",
     "mask_entry_points",
     "plan_queries",
+    "planned_graph_from_numpy",
     "planned_exec_core",
 ]

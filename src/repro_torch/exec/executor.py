@@ -13,10 +13,17 @@ reference does (``executor.py:117-144``):
     all padding);
 
 then selects each row's result by its plan. ``plan="graph"`` bypasses the
-planner; ``"wide"`` / ``"brute"`` force one strategy.
+planner; ``"wide"`` / ``"brute"`` force one strategy. Both graph strategies
+run the search core's branch for the label layout and ``fused``
+(``search.batched.search_core``); the brute strategy always scans with the
+gather scorer over the cached norms.
 
-Not ported yet (ROADMAP A): ``stats=True``, ``fused=False``, the int32
-label layout and the segmented tier's ``worklist_exec_core``.
+The planner's estimator is built here, not in the search layer:
+``export_planned_graph`` and ``planned_graph_from_numpy`` are the search
+layer's exports with the estimator attached.
+
+Not ported yet (ROADMAP A): ``stats=True`` and the segmented tier's
+``worklist_exec_core``.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.exec.bruteforce import brute_topk_impl, effective_norms
+from repro_torch.exec.estimator import SelectivityEstimator
 from repro_torch.exec.plan import (
     PlannerConfig,
     QueryPlan,
@@ -34,14 +42,31 @@ from repro_torch.exec.plan import (
     plan_queries,
 )
 from repro_torch.search.batched import LOOP_BLOCK, prepare_states_extended, search_core
+from repro_torch.search.device_graph import device_graph_from_numpy, export_device_graph
 
 PLANS = ("auto", "graph", "wide", "brute")
+
+
+def export_planned_graph(g, et=None, *, planner_buckets: int = 64, **kwargs):
+    """``search.export_device_graph`` of ``g`` with the planner's
+    selectivity estimator (``planner_buckets``² histogram) attached."""
+    planner = SelectivityEstimator.from_graph(g, buckets=planner_buckets)
+    return export_device_graph(g, et, planner=planner, **kwargs)
+
+
+def planned_graph_from_numpy(arrays: dict, *, device=None):
+    """``search.device_graph_from_numpy`` with the estimator rebuilt from the
+    same arrays (``estimator.STATE_FIELDS``; without ``cum``, no planner)."""
+    planner = None
+    if arrays.get("cum") is not None:
+        planner = SelectivityEstimator.from_state(arrays)
+    return device_graph_from_numpy(arrays, planner=planner, device=device)
 
 
 def planned_exec_core(
     table: torch.Tensor,     # [n, D] f32 (or int8 with scales)
     nbr: torch.Tensor,       # [n, E] int32
-    plabels: torch.Tensor,   # [n, E, 2] int32 packed label words
+    labels: torch.Tensor,    # [n, E, 2] packed words or [n, E, 4] int32
     q: torch.Tensor,         # [B, D] f32
     states: torch.Tensor,    # [B, 2] int32
     ep_graph: torch.Tensor,  # [B] int32 entry ids, -1 unless plan==GRAPH
@@ -58,18 +83,19 @@ def planned_exec_core(
     wide_expand: int = 1,
     norms: torch.Tensor,
     scales: torch.Tensor | None = None,
+    fused: bool = True,
     block: int = LOOP_BLOCK,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All three strategies over the batch + per-row plan select."""
     ids_g, d_g = search_core(
-        table, nbr, plabels, q, states, ep_graph, k=k, beam=beam,
+        table, nbr, labels, q, states, ep_graph, k=k, beam=beam,
         max_iters=max_iters, expand=expand, norms=norms, scales=scales,
-        block=block,
+        fused=fused, block=block,
     )
     ids_w, d_w = search_core(
-        table, nbr, plabels, q, states, ep_wide, k=k, beam=wide_beam,
+        table, nbr, labels, q, states, ep_wide, k=k, beam=wide_beam,
         max_iters=wide_max_iters, expand=wide_expand, norms=norms,
-        scales=scales, block=block,
+        scales=scales, fused=fused, block=block,
     )
     nrm = effective_norms(table, scales, norms)
     ids_b, d_b = brute_topk_impl(table, nrm, q, bf_ids, k=k, scales=scales)
@@ -102,6 +128,7 @@ def execute_batch(
     beam: int = 64,
     max_iters: Optional[int] = None,
     expand: int = 1,
+    fused: bool = True,
     plan: str = "auto",
     config: Optional[PlannerConfig] = None,
     return_plans: bool = False,
@@ -114,7 +141,9 @@ def execute_batch(
 
     ``plan`` is ``"auto"`` (selectivity-aware, the default), ``"graph"``
     (the single-strategy parity oracle), ``"wide"`` or ``"brute"`` (forced
-    strategies). ``row_mask`` (``[B]`` bool) drops rows by padding: a
+    strategies). ``fused=False`` runs both graph strategies on the unfused
+    branch (dense candidate pre-gather, the wide one with expand 1, as the
+    reference). ``row_mask`` (``[B]`` bool) drops rows by padding: a
     ``False`` row is treated as invalid and returns ``ids=-1 / d=+inf`` at
     no traversal cost. Returns numpy ``(ids [B, k], dists [B, k])``, plus the
     ``PlanBatch`` when ``return_plans`` is set (``None`` for the non-auto
@@ -133,6 +162,10 @@ def execute_batch(
             )
         invalid = invalid | ~row_mask
         ep = np.where(row_mask, ep, -1).astype(np.int32)
+    if plan in ("auto", "brute") and dg.planner is None:
+        raise ValueError(
+            f"plan={plan!r} requires a DeviceGraph planner "
+            "(export with repro_torch.exec.export_planned_graph)")
     if plan == "auto":
         pb = plan_queries(dg.planner, states, invalid, config=config)
         plans, bf_ids = pb.plans, pb.bf_ids
@@ -144,8 +177,6 @@ def execute_batch(
     else:  # forced brute: exact valid sets of ANY size, capacity rounded
         # up to a power of two
         pb = None
-        if dg.planner is None:
-            raise ValueError("plan='brute' requires a DeviceGraph planner")
         plans = np.full(B, int(QueryPlan.BRUTE_VALID), dtype=np.int32)
         lists = [
             np.empty(0, np.int32) if invalid[i]
@@ -159,8 +190,9 @@ def execute_batch(
             bf_ids[i, : l.shape[0]] = l
     ep_graph, ep_wide = mask_entry_points(ep, plans)
     wide_beam = max(beam * config.wide_beam_scale, beam)
+    wide_expand = config.wide_expand if fused else 1
     mi = max_iters if max_iters is not None else 2 * beam
-    labels = dg.serving_labels(device=dev)
+    labels = dg.serving_labels(fused=fused, device=dev)
     di = dg.device(dev)
 
     def put(a):
@@ -171,8 +203,8 @@ def execute_batch(
         put(states), put(ep_graph), put(ep_wide), put(bf_ids), put(plans),
         k=k, beam=beam, wide_beam=wide_beam,
         max_iters=mi, wide_max_iters=mi * config.wide_beam_scale,
-        expand=expand, wide_expand=min(config.wide_expand, wide_beam),
-        norms=di.norms, scales=di.scales, block=block,
+        expand=expand, wide_expand=min(wide_expand, wide_beam),
+        norms=di.norms, scales=di.scales, fused=fused, block=block,
     )
     ret = (ids.cpu().numpy(), d.cpu().numpy())
     if return_plans:

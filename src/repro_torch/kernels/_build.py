@@ -36,6 +36,10 @@ ARGTYPES = {
             _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P,
             _P,
         ],
+        "filter_dist_dense": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    },
+    "l2dist": {
+        "l2dist": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _P],
     },
     "beam_merge": {
         "beam_merge": [

@@ -1,4 +1,4 @@
-"""Kernel wrappers of the planned query path.
+"""Kernel wrappers of the port.
 
 Same names and signatures as the JAX package's ``kernels/ops.py`` (minus
 ``use_ref``). Each op dispatches on where its tensors lie:
@@ -19,7 +19,10 @@ from repro_torch.kernels import _build, ref
 
 quantize_int8 = ref.quantize_int8
 
-LAUNCHES = {"filter_dist_gather_packed": 0, "beam_merge": 0, "filter_dist_gather": 0}
+LAUNCHES = {
+    "filter_dist_gather_packed": 0, "beam_merge": 0, "filter_dist_gather": 0,
+    "filter_dist": 0, "l2dist": 0, "int8_l2dist": 0,
+}
 
 
 def reset_launches() -> None:
@@ -75,6 +78,35 @@ def _table_args(table, norms, scales, q):
     width = 16 if is_int8 else 4     # elements per 16-byte load
     vec = int(D % width == 0 and table.data_ptr() % 16 == 0)
     return n, D, int(is_int8), vec
+
+
+def filter_dist(
+    q: torch.Tensor,          # [B, D] f32
+    cand: torch.Tensor,       # [B, E, D] f32 pre-gathered candidate rows
+    labels: torch.Tensor,     # [B, E, 4] int32
+    state: torch.Tensor,      # [B, 2] int32
+    cand_ids: torch.Tensor,   # [B, E] int32 (-1 = padding)
+) -> torch.Tensor:
+    """Label test + squared distance ``[B, E]`` over a dense candidate
+    tensor, ``‖c‖²`` recomputed from each row (+inf = inactive); bitwise
+    equal to ``ref.filter_dist_ref``."""
+    if not _on_cuda(q, cand, labels, state, cand_ids):
+        return ref.filter_dist_ref(q, cand, labels, state, cand_ids)
+    B, E, D = cand.shape
+    _check(q, "q", torch.float32, (B, D))
+    _check(cand, "cand", torch.float32, (B, E, D))
+    _check(labels, "labels", torch.int32, (B, E, 4))
+    _check(state, "state", torch.int32, (B, 2))
+    _check(cand_ids, "cand_ids", torch.int32, (B, E))
+    vec = int(D % 4 == 0 and cand.data_ptr() % 16 == 0)
+    out = torch.empty((B, E), dtype=torch.float32, device=q.device)
+    rc = _build.library("filter_dist").filter_dist_dense(
+        _ptr(q), _ptr(cand), B, E, D, _ptr(labels), _ptr(state),
+        _ptr(cand_ids), vec, _ptr(out), _stream(q),
+    )
+    _raise_on(rc, "filter_dist")
+    LAUNCHES["filter_dist"] += 1
+    return out
 
 
 def filter_dist_gather(
@@ -183,6 +215,48 @@ def beam_merge(
     return new_ids, new_d, new_exp, keep
 
 
+_L2_TYPES = {torch.float32: 0, torch.float16: 1, torch.int8: 2}
+
+
+def _l2dist(q, c, scales, name):
+    Bq, D = q.shape
+    Bc = c.shape[0]
+    _check(q, "q", (torch.float32, torch.float16), (Bq, D))
+    _check(c, "c", (torch.float32, torch.float16, torch.int8), (Bc, D))
+    if scales is not None:
+        _check(scales, "c_scale", torch.float32, (Bc,))
+    out = torch.empty((Bq, Bc), dtype=torch.float32, device=q.device)
+    rc = _build.library("l2dist").l2dist(
+        _ptr(q), _L2_TYPES[q.dtype], _ptr(c), _L2_TYPES[c.dtype], _ptr(scales),
+        Bq, Bc, D, _ptr(out), _stream(q),
+    )
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def l2dist(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Squared-L2 distance matrix ``[Bq, Bc]`` f32 of q ``[Bq, D]`` and
+    c ``[Bc, D]`` (f32 or f16; computed in f32)."""
+    if not _on_cuda(q, c):
+        return ref.l2dist_ref(q, c)
+    if q.dtype != c.dtype:      # one input type per launch
+        q, c = q.float(), c.float()
+    return _l2dist(q, c, None, "l2dist")
+
+
+def int8_l2dist(
+    q: torch.Tensor, c_q: torch.Tensor, c_scale: torch.Tensor
+) -> torch.Tensor:
+    """Squared-L2 ``[Bq, Bc]`` of f32 queries against int8 rows, each
+    dequantized by its scale before the f32 math."""
+    if not _on_cuda(q, c_q, c_scale):
+        return ref.int8_l2dist_ref(q, c_q, c_scale)
+    if c_q.dtype != torch.int8:
+        raise RuntimeError(f"c_q: dtype {c_q.dtype}, expected torch.int8")
+    return _l2dist(q.float(), c_q, c_scale, "int8_l2dist")
+
+
 def topk_merge(
     acc_d: torch.Tensor,      # [B, L] f32 ascending (+inf padding)
     acc_ids: torch.Tensor,    # [B, L] int32 (-1 padding)
@@ -202,8 +276,11 @@ def topk_merge(
 __all__ = [
     "LAUNCHES",
     "beam_merge",
+    "filter_dist",
     "filter_dist_gather",
     "filter_dist_gather_packed",
+    "int8_l2dist",
+    "l2dist",
     "quantize_int8",
     "reset_launches",
     "topk_merge",

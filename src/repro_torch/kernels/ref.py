@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the planned query path.
+"""Plain PyTorch versions of the port's kernels.
 
 Twins of the JAX package's jnp oracles (``kernels/ref.py``,
 ``kernels/beam_merge.py``, ``kernels/int8dist.py``). They are what the
@@ -15,6 +15,89 @@ from __future__ import annotations
 import torch
 
 INF = float("inf")
+LANES = 32       # a warp
+
+
+def warp_dot(x: torch.Tensor, y: torch.Tensor, width: int = 4) -> torch.Tensor:
+    """``sum_d x[..., d] * y[..., d]`` over the last axis, summed in f64 in
+    the order of the scorers' warps (``csrc/filter_dist.cu``, ``row_dot``)
+    and rounded once to f32, so kernel and plain version agree to the bit.
+
+    Lane ``l`` of 32 adds, one after another, the products of elements
+    ``32·width·k + width·l + j`` for k = 0, 1, ... and j < ``width`` (the
+    elements of one 16-byte load: 4 for f32 rows, 16 for int8 rows); then
+    the lane sums are added as a butterfly (lane l with lane l + 16, then
+    l + 8, ...). Every f32 or int8 product is exact in f64. x and y
+    broadcast against each other (any real dtype); the temporaries are
+    ``[..., 32]`` f64, a strided slice of the inputs at a time."""
+    D = x.shape[-1]
+    step = LANES * width
+    lead = torch.broadcast_shapes(x.shape[:-1], y.shape[:-1])
+    acc = torch.zeros(lead + (LANES,), dtype=torch.float64, device=x.device)
+    for k0 in range(0, D, step):
+        for j in range(width):
+            cols = slice(k0 + j, min(k0 + step, D), width)   # lane l: k0 + width·l + j
+            xs, ys = x[..., cols], y[..., cols]
+            m = xs.shape[-1]
+            if m:
+                acc[..., :m] += xs.double() * ys.double()
+    o = LANES // 2
+    while o:
+        acc = acc[..., :o] + acc[..., o:2 * o]
+        o //= 2
+    return acc[..., 0].float()
+
+
+def filter_dist_ref(
+    q: torch.Tensor,          # [B, D] query vectors
+    cand: torch.Tensor,       # [B, E, D] pre-gathered candidate vectors
+    labels: torch.Tensor,     # [B, E, 4] int32 label rectangles (l, r, b, e)
+    state: torch.Tensor,      # [B, 2] int32 canonical rank state (a, c)
+    cand_ids: torch.Tensor,   # [B, E] int32 (-1 = padding)
+) -> torch.Tensor:
+    """Label test + squared distance over a dense candidate tensor, ``[B, E]``
+    f32: ``‖c‖² − 2·q·c + ‖q‖²`` with ``‖c‖²`` recomputed from the row, where
+    the tuple is active for (a, c) and the id is >= 0; +inf otherwise.
+
+    ``‖c‖²``, ``q·c`` and ``‖q‖²`` are each summed by :func:`warp_dot` (f64,
+    the kernel's order, rounded once), then the f32 operations run one by
+    one, as the kernel does them."""
+    q = q.float()
+    cand = cand.float()
+    cs = warp_dot(cand, cand)
+    cross = warp_dot(cand, q[:, None, :])
+    qs = warp_dot(q, q)[:, None]
+    dist = cs - 2.0 * cross + qs
+    a = state[:, 0:1]
+    cc = state[:, 1:2]
+    ok = (
+        (labels[..., 0] <= a)
+        & (a <= labels[..., 1])
+        & (labels[..., 2] <= cc)
+        & (cc <= labels[..., 3])
+        & (cand_ids >= 0)
+    )
+    return torch.where(ok, dist, torch.full_like(dist, INF))
+
+
+def l2dist_ref(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance matrix: q ``[Bq, D]``, c ``[Bc, D]`` (f32 or f16,
+    computed in f32) -> ``[Bq, Bc]`` f32, ``‖q‖² − 2·q·cᵀ + ‖c‖²``."""
+    q = q.float()
+    c = c.float()
+    qs = torch.sum(q * q, dim=-1, keepdim=True)
+    cs = torch.sum(c * c, dim=-1)[None, :]
+    return qs - 2.0 * (q @ c.T) + cs
+
+
+def int8_l2dist_ref(
+    q: torch.Tensor,        # [Bq, D] f32 queries
+    c_q: torch.Tensor,      # [Bc, D] int8 quantized candidates
+    c_scale: torch.Tensor,  # [Bc] f32 per-vector dequant scales
+) -> torch.Tensor:
+    """Squared L2 against int8 rows, each dequantized first (c ~ c_q·scale);
+    the math is f32, as in the reference (no int8 product)."""
+    return l2dist_ref(q, c_q.float() * c_scale[:, None])
 
 
 def filter_dist_gather_ref(
@@ -35,12 +118,12 @@ def filter_dist_gather_ref(
     q = q.float()
     safe = cand_ids.long().clamp(0, n - 1)
     cand = table[safe]                                # [B, C, D]
-    # q.c and |q|^2 summed in f64 and rounded once to f32, as the kernel does:
-    # the two then agree to the bit whatever order each sums in
-    cross = torch.einsum("bd,bcd->bc", q.double(), cand.double()).float()
+    # q.c and |q|^2 summed in f64 in the kernel's order, rounded once
+    width = 16 if table.dtype == torch.int8 else 4
+    cross = warp_dot(cand, q[:, None, :], width)
     if scales is not None:
         cross = cross * scales[safe]
-    qs = torch.sum(q.double() ** 2, dim=-1, keepdim=True).float()
+    qs = warp_dot(q, q)[:, None]
     dist = norms[safe] - 2.0 * cross + qs
     a = state[:, 0:1]
     cc = state[:, 1:2]

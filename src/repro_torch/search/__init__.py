@@ -1,5 +1,6 @@
 """Batched UDG search on torch tensors — the serving path."""
 from repro_torch.search.device_graph import (
+    BroadExport,
     DeviceGraph,
     DeviceIndex,
     device_graph_from_numpy,
@@ -7,15 +8,23 @@ from repro_torch.search.device_graph import (
     pack_labels,
     unpack_labels,
 )
-from repro_torch.search.batched import batched_udg_search, prepare_states
+from repro_torch.search.batched import (
+    batched_udg_search,
+    broad_batched_search,
+    prepare_states,
+    search_core,
+)
 
 __all__ = [
+    "BroadExport",
     "DeviceGraph",
     "DeviceIndex",
     "batched_udg_search",
+    "broad_batched_search",
     "device_graph_from_numpy",
     "export_device_graph",
     "pack_labels",
     "prepare_states",
+    "search_core",
     "unpack_labels",
 ]

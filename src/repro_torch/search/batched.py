@@ -1,8 +1,11 @@
-"""Batched lockstep UDG search (Alg. 2) — the packed-label, fused branch.
+"""Batched lockstep UDG search (Alg. 2) on torch tensors.
 
 Every query in the batch advances one step per iteration; finished queries
-no-op until the whole batch terminates. Per iteration and per query:
+no-op until the whole batch terminates. ``search_core`` runs one of three
+branches, chosen by the label layout and ``fused``, as the reference's
+``_batched_search_core`` does:
 
+* packed ``[n, E, 2]`` labels, fused (the serving path). Per iteration:
   1. select the best ``expand`` (M >= 1) unexpanded beam entries (lower
      beam index first on exact ties, as ``argmin`` / ``lax.top_k`` in the
      reference);
@@ -16,6 +19,19 @@ no-op until the whole batch terminates. Per iteration and per query:
      unvisited, so each bit lands at most once: an add of distinct bits is
      an or, in any order, and ``1 << 31`` wraps to the right int32 bit
      pattern).
+* int32 ``[n, E, 4]`` labels, fused (``batched.py:251-295``), or no labels
+  at all (the constructor's broad search, all-zero rectangles and state):
+  steps 1-2, then the expanded nodes' rectangles are gathered here and the
+  gather scorer (``ops.filter_dist_gather``) scores; dedup by a stable
+  argsort of the id key; the bitmap update; a stable merge on distance.
+* ``fused=False`` (``batched.py:297-350``, int32 labels, M = 1): a dense
+  ``[B, n]`` visited table, the candidate rows pre-gathered into
+  ``[B, E, D]`` here, the dense scorer (``ops.filter_dist``, norms
+  recomputed), then the seen/duplicate masks and the same stable merge.
+
+Every sort and argsort is stable (torch's default promises no tie order),
+so ties resolve as ``jnp.argsort`` and ``lax.sort(is_stable=True)`` do;
+sort keys are ``d + 0.0`` (-0.0 ties +0.0, as the reference's comparator).
 
 The reference runs this body in an on-device ``lax.while_loop`` whose
 condition is "some row still has an unexpanded finite beam entry". Here
@@ -26,8 +42,7 @@ neighbor ids -1 → all-inf candidates → unchanged beam, no bitmap bits), so
 results do not depend on ``block``. ``LOOP_STATS`` counts the tests (host
 syncs) and iterations.
 
-Not ported yet (ROADMAP A): the int32-label fused branch, ``fused=False``,
-``stats=True`` and the broad (label-ignoring) search of the constructor.
+Not ported yet (ROADMAP A5.1): ``stats=True``.
 """
 from __future__ import annotations
 
@@ -39,6 +54,7 @@ import torch
 from repro_torch.core.predicates import get_relation
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import warp_dot
 from repro_torch.search.device_graph import DeviceGraph
 
 INF = float("inf")
@@ -79,10 +95,57 @@ def prepare_states(
     return states, ep
 
 
+def _select(beam_ids, beam_d, beam_exp, M):
+    """Step 1: the best M unexpanded entries per query. Returns (live
+    [B, M], cur_safe [B, M] int32, beam_exp with the live ones marked)."""
+    cand_d = torch.where(beam_exp, INF, beam_d)
+    if M == 1:
+        j = torch.argmin(cand_d, dim=1, keepdim=True)          # [B, 1]
+    else:
+        j = torch.sort(cand_d, dim=1, stable=True).indices[:, :M]
+    live = torch.gather(cand_d, 1, j) < INF                      # [B, M]
+    cur = torch.gather(beam_ids, 1, j)
+    cur_safe = torch.where(live, cur, 0)
+    beam_exp = beam_exp.scatter(1, j, torch.gather(beam_exp, 1, j) | live)
+    return live, cur_safe, beam_exp
+
+
+def _set_bits(visited, ids, keep, n):
+    """Set the bits of the kept ids in the int32 visited bitmap. Kept ids
+    are deduped and unvisited, so a scatter-add of distinct bits is an or."""
+    ids_safe = ids.clamp(0, n - 1).long()
+    bits = torch.where(keep, 1 << (ids_safe & 31), 0).to(torch.int32)
+    visited.scatter_add_(1, ids_safe >> 5, bits)
+
+
+def _dedup(nb, d_new, n):
+    """Intra-iteration duplicate suppression by a stable argsort of the id
+    key (``batched.py:261-269``). Returns (ids_s, d_s, keep) in key order."""
+    id_key = torch.where(torch.isfinite(d_new), nb, n)
+    order = torch.argsort(id_key, dim=1, stable=True)
+    ids_s = torch.gather(nb, 1, order)
+    d_s = torch.gather(d_new, 1, order)
+    dup = torch.zeros_like(ids_s, dtype=torch.bool)
+    dup[:, 1:] = ids_s[:, 1:] == ids_s[:, :-1]
+    d_s = torch.where(dup, INF, d_s)
+    return ids_s, d_s, torch.isfinite(d_s)
+
+
+def _merge(beam_ids, beam_d, beam_exp, ids_s, d_s, keep, L):
+    """Stable merge of the beam and the candidates; keep the best L."""
+    all_d = torch.cat([beam_d, d_s], dim=1)
+    all_ids = torch.cat([beam_ids, ids_s], dim=1)
+    all_exp = torch.cat([beam_exp, ~keep], dim=1)
+    order = torch.sort(all_d + 0.0, dim=1, stable=True).indices[:, :L]
+    return (torch.gather(all_ids, 1, order), torch.gather(all_d, 1, order),
+            torch.gather(all_exp, 1, order))
+
+
 def search_core(
     table: torch.Tensor,    # [n, D] f32 (or int8 with scales)
     nbr: torch.Tensor,      # [n, E] int32
-    plabels: torch.Tensor,  # [n, E, 2] int32 packed label words
+    labels: torch.Tensor | None,  # [n, E, 2] packed words, [n, E, 4] int32,
+                                  # or None: label-ignoring (broad) search
     q: torch.Tensor,        # [B, D] f32
     states: torch.Tensor,   # [B, 2] int32
     ep: torch.Tensor,       # [B] int32 (-1 = no entry: the row does nothing)
@@ -91,69 +154,104 @@ def search_core(
     beam: int,
     max_iters: int,
     expand: int = 1,
-    norms: torch.Tensor,    # [n] f32 cached ‖c‖² of the scored rows
-    scales: torch.Tensor | None = None,   # [n] f32: int8-quantized table
+    norms: torch.Tensor | None = None,   # [n] f32 cached ‖c‖² of the scored
+                                         # rows (required by the fused branches)
+    scales: torch.Tensor | None = None,  # [n] f32: int8-quantized table
+    fused: bool = True,
     block: int = LOOP_BLOCK,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The packed fused search loop on whatever device the tensors lie on.
+    """The lockstep search loop on whatever device the tensors lie on.
     Returns (ids [B, k] int32, squared distances [B, k] f32), ascending."""
-    if plabels.shape[-1] != 2:
-        raise NotImplementedError(
-            "the int32-label search branch is not ported yet (ROADMAP A)")
+    packed = labels is not None and labels.shape[-1] == 2
+    if not fused and expand != 1:
+        raise ValueError("multi-expand (expand > 1) requires fused=True")
     if not 1 <= expand <= beam:
         raise ValueError(f"expand={expand} must be in [1, beam={beam}]")
+    if not fused and packed:
+        raise ValueError("the unfused branch needs the int32 [n, E, 4] labels "
+                         "(DeviceGraph.serving_labels(fused=False))")
     n = table.shape[0]
     B = q.shape[0]
     E = nbr.shape[1]
     L, M = beam, expand
+    ME = M * E
     dev = q.device
     q = q.float()
 
+    def deq(idx):
+        """Rows ``idx`` of the table in f32 (dequantizing int8 storage)."""
+        out = table[idx].float()
+        return out if scales is None else out * scales[idx][..., None]
+
     has_ep = ep >= 0
     ep_safe = torch.where(has_ep, ep, torch.zeros_like(ep)).long()
-    row = table[ep_safe].float()
-    if scales is not None:
-        row = row * scales[ep_safe][:, None]
-    # summed in f64 and rounded once, so the card and the CPU agree to the bit
-    d_ep = torch.sum((q - row).double() ** 2, dim=-1).float()
+    # summed in f64 in one order, rounded once: the card and the CPU agree
+    diff = q - deq(ep_safe)
+    d_ep = warp_dot(diff, diff)
 
     beam_ids = torch.full((B, L), -1, dtype=torch.int32, device=dev)
     beam_d = torch.full((B, L), INF, dtype=torch.float32, device=dev)
     beam_exp = torch.zeros((B, L), dtype=torch.bool, device=dev)
     beam_ids[:, 0] = torch.where(has_ep, ep, -1)
     beam_d[:, 0] = torch.where(has_ep, d_ep, INF)
-    visited = torch.zeros((B, (n + 31) // 32), dtype=torch.int32, device=dev)
-    ep_bit = torch.where(has_ep, 1 << (ep_safe & 31), 0).to(torch.int32)
-    visited.scatter_add_(1, (ep_safe >> 5)[:, None], ep_bit[:, None])
 
-    def body(beam_ids, beam_d, beam_exp, visited):
-        # 1. best M unexpanded entries per query
-        cand_d = torch.where(beam_exp, INF, beam_d)
-        if M == 1:
-            j = torch.argmin(cand_d, dim=1, keepdim=True)          # [B, 1]
-        else:
-            j = torch.sort(cand_d, dim=1, stable=True).indices[:, :M]
-        live = torch.gather(cand_d, 1, j) < INF                      # [B, M]
-        cur = torch.gather(beam_ids, 1, j)
-        cur_safe = torch.where(live, cur, 0)
-        beam_exp = beam_exp.scatter(1, j, torch.gather(beam_exp, 1, j) | live)
-        # 2. neighbor ids of the expanded nodes
-        nb = torch.where(live[:, :, None], nbr[cur_safe.long()], -1)
-        nb = nb.reshape(B, M * E)
-        # 3. packed-label scorer
+    if fused:
+        if norms is None:
+            raise ValueError("the fused branches score with cached norms: pass norms")
+        visited = torch.zeros((B, (n + 31) // 32), dtype=torch.int32, device=dev)
+        ep_bit = torch.where(has_ep, 1 << (ep_safe & 31), 0).to(torch.int32)
+        visited.scatter_add_(1, (ep_safe >> 5)[:, None], ep_bit[:, None])
+    else:
+        visited = torch.zeros((B, n), dtype=torch.uint8, device=dev)
+        visited[torch.arange(B, device=dev), ep_safe] = has_ep.to(torch.uint8)
+    if labels is None:      # broad: every tuple passes the all-zero test
+        zero_lab = torch.zeros((B, ME, 4), dtype=torch.int32, device=dev)
+
+    def packed_body(beam_ids, beam_d, beam_exp, visited):
+        live, cur_safe, beam_exp = _select(beam_ids, beam_d, beam_exp, M)
+        nb = torch.where(live[:, :, None], nbr[cur_safe.long()], -1).reshape(B, ME)
         d_new = ops.filter_dist_gather_packed(
-            table, plabels, norms, q, cur_safe, nb, states, visited,
+            table, labels, norms, q, cur_safe, nb, states, visited,
             scales=scales,
         )
-        # 4. dedup + top-L merge; keep = deduped survivors in nb order
+        # dedup + top-L merge; keep = deduped survivors in nb order
         beam_ids, beam_d, beam_exp, keep = ops.beam_merge(
             beam_d, beam_ids, beam_exp, d_new, nb, n=n)
-        # 5. visited bitmap: scatter-add of distinct bits == scatter-or
-        ids_safe = nb.clamp(0, n - 1).long()
-        bits = torch.where(keep, 1 << (ids_safe & 31), 0).to(torch.int32)
-        visited.scatter_add_(1, ids_safe >> 5, bits)
+        _set_bits(visited, nb, keep, n)
         return beam_ids, beam_d, beam_exp, visited
 
+    def int32_body(beam_ids, beam_d, beam_exp, visited):
+        live, cur_safe, beam_exp = _select(beam_ids, beam_d, beam_exp, M)
+        nb = torch.where(live[:, :, None], nbr[cur_safe.long()], -1).reshape(B, ME)
+        lb = zero_lab if labels is None else labels[cur_safe.long()].reshape(B, ME, 4)
+        d_new = ops.filter_dist_gather(
+            table, norms, q, nb, lb, states, visited, scales=scales)
+        ids_s, d_s, keep = _dedup(nb, d_new, n)
+        _set_bits(visited, ids_s, keep, n)
+        beam_ids, beam_d, beam_exp = _merge(
+            beam_ids, beam_d, beam_exp, ids_s, d_s, keep, L)
+        return beam_ids, beam_d, beam_exp, visited
+
+    def unfused_body(beam_ids, beam_d, beam_exp, visited):
+        live, cur_safe, beam_exp = _select(beam_ids, beam_d, beam_exp, 1)
+        cur_safe = cur_safe[:, 0].long()
+        nb = torch.where(live, nbr[cur_safe], -1)                   # [B, E]
+        lb = zero_lab if labels is None else labels[cur_safe]       # [B, E, 4]
+        nb_safe = nb.clamp(0, n - 1).long()
+        # the reference's XLA gather of the dense candidate tensor
+        d_new = ops.filter_dist(q, deq(nb_safe), lb, states, nb)
+        seen = torch.gather(visited, 1, nb_safe) > 0
+        d_new = torch.where(seen | (nb < 0), INF, d_new)
+        ids_s, d_s, keep = _dedup(nb, d_new, n)
+        # the reference's ``.at[rows, ids].max(keep)``: clipped duplicates
+        # carry keep = False, so an amax (order-free) keeps their bytes
+        visited.scatter_reduce_(1, ids_s.clamp(0, n - 1).long(),
+                                keep.to(torch.uint8), reduce="amax")
+        beam_ids, beam_d, beam_exp = _merge(
+            beam_ids, beam_d, beam_exp, ids_s, d_s, keep, L)
+        return beam_ids, beam_d, beam_exp, visited
+
+    body = unfused_body if not fused else packed_body if packed else int32_body
     it = 0
     while it < max_iters:
         LOOP_STATS["syncs"] += 1
@@ -177,25 +275,28 @@ def batched_udg_search(
     beam: int = 64,
     max_iters: int | None = None,
     expand: int = 1,
+    fused: bool = True,
     plan: str = "graph",
     device=None,
     block: int = LOOP_BLOCK,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """End-to-end batched query: canonicalize on the host, search on
     ``device`` (``None`` = the card) over the graph's memoized device
-    bundle. ``plan="graph"`` is the pure beam search; ``"auto"`` /
-    ``"wide"`` / ``"brute"`` route through ``repro_torch.exec.execute_batch``.
+    bundle. The branch follows the export's label layout (packed words,
+    else int32 rectangles); ``fused=False`` runs the unfused branch.
+    ``plan="graph"`` is the pure beam search; ``"auto"`` / ``"wide"`` /
+    ``"brute"`` route through ``repro_torch.exec.execute_batch``.
     Returns numpy ``(ids [B, k], dists [B, k])``."""
     if plan != "graph":
         from repro_torch.exec.executor import execute_batch
 
         return execute_batch(
             dg, q, s_q, t_q, k=k, beam=beam, max_iters=max_iters,
-            expand=expand, plan=plan, device=device, block=block,
+            expand=expand, fused=fused, plan=plan, device=device, block=block,
         )
     dev = resolve_device(device)
     states, ep = prepare_states(dg, s_q, t_q)
-    labels = dg.serving_labels(device=dev)
+    labels = dg.serving_labels(fused=fused, device=dev)
     di = dg.device(dev)
     ids, d = search_core(
         di.table, di.nbr, labels,
@@ -203,6 +304,36 @@ def batched_udg_search(
         torch.as_tensor(states, device=dev), torch.as_tensor(ep, device=dev),
         k=k, beam=beam,
         max_iters=max_iters if max_iters is not None else 2 * beam,
-        expand=expand, norms=di.norms, scales=di.scales, block=block,
+        expand=expand, norms=di.norms, scales=di.scales, fused=fused,
+        block=block,
     )
     return ids.cpu().numpy(), d.cpu().numpy()
+
+
+def broad_batched_search(
+    table: torch.Tensor,     # [n_pad, D] f32 full vector table
+    norms: torch.Tensor,     # [n_pad] f32 cached ‖v‖²
+    nbr: torch.Tensor,       # [n_pad, E] int32 broad adjacency (-1 padded)
+    q: torch.Tensor,         # [B, D] f32 wave of inserted objects
+    ep: torch.Tensor,        # [B] int32 entry ids (-1 = masked/padding query)
+    *,
+    k: int,
+    beam: int | None = None,
+    max_iters: int | None = None,
+    fused: bool = True,
+    expand: int = 1,
+    block: int = LOOP_BLOCK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Label-ignoring batched beam search — the constructor's broad search
+    (``udg_search(..., ignore_labels=True)`` for a whole insertion wave)
+    over a broad adjacency (``device_graph.BroadExport``): no labels, the
+    all-zero rectangles and state pass every tuple. Returns tensors on the
+    inputs' device (ids [B, k] int32 with -1 padding, squared dists [B, k]
+    f32, ascending)."""
+    L = beam if beam is not None else k
+    states = torch.zeros((q.shape[0], 2), dtype=torch.int32, device=q.device)
+    return search_core(
+        table, nbr, None, q, states, ep, k=k, beam=L,
+        max_iters=max_iters if max_iters is not None else 2 * L,
+        expand=expand, norms=norms, fused=fused, block=block,
+    )

@@ -12,18 +12,22 @@ The host adjacency (ragged lists of labeled tuples) is exported as
 
 with E = max labeled degree rounded up to a lane multiple, plus the entry
 table, the canonical grids, cached per-node squared norms, optional int8
-storage with per-vector scales, and the planner's selectivity estimator.
-The host arrays are numpy and equal the JAX package's export array by array.
+storage with per-vector scales, and the planner's selectivity estimator
+(built by the exec layer and handed in: ``repro_torch.exec.export_planned_graph``).
+The host arrays are numpy and equal the JAX package's export array by array,
+but for the norms: summed in f64 in the scorers' order and rounded once,
+they are within an f32 ulp of the reference's f32 sums.
 
 ``DeviceGraph.device(device)`` stages the search-visible arrays as torch
 tensors, memoized per device. On a device the packed words are carried as
-int32 bit patterns (torch has no shifts for uint32). Only the packed layout
-is searchable in this port: the int32 fused branch and the ``fused=False``
-baseline are not ported yet (ROADMAP A), so ``serving_labels`` raises for
-an export that fell back to int32 labels.
+int32 bit patterns (torch has no shifts for uint32). ``serving_labels``
+picks the layout a search runs with, as the reference's does: the packed
+words for the fused search when the export has them, otherwise (and always
+for ``fused=False``) the int32 ``[n, E, 4]`` rectangles.
 
 ``device_graph_from_numpy`` rebuilds a ``DeviceGraph`` from another
 export's arrays unchanged, so two implementations can search the same index.
+``BroadExport`` is the wave constructor's label-ignoring adjacency.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 from repro_torch.core.entry import EntryTable
 from repro_torch.core.graph import LabeledGraph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import warp_dot
 
 # canonical ranks are packed two-per-word in 16-bit halves; a grid axis
 # with more distinct values than this cannot use the packed layout
@@ -153,17 +158,23 @@ class DeviceGraph:
             )
         return out
 
-    def serving_labels(self, *, device=None) -> torch.Tensor:
-        """The device label view a search runs with: the packed words.
-        Searching the int32 layout (an export with ``packed_labels=False``
-        or one that fell back) is not ported yet and raises
-        ``NotImplementedError``."""
-        if self.plabels is None:
-            raise NotImplementedError(
-                "the int32-label search branch is not ported yet (ROADMAP A); "
-                "export with packed labels"
-            )
-        return self.device(device).labels
+    def serving_labels(self, *, fused: bool = True, device=None) -> torch.Tensor:
+        """The device label view a search runs with: the packed words when
+        the export has them and the search is fused; otherwise the int32
+        ``[n, E, 4]`` rectangles (the only layout ``fused=False`` reads)."""
+        di = self.device(device)
+        if fused and di.packed:
+            return di.labels
+        return self.device_labels_i32(device) if di.packed else di.labels
+
+    def device_labels_i32(self, device=None) -> torch.Tensor:
+        """Memoized int32 ``[n, E, 4]`` rectangles on ``device``."""
+        dev = resolve_device(device)
+        key = ("labels_i32", str(dev))
+        out = self._cache.get(key)
+        if out is None:
+            out = self._cache[key] = torch.from_numpy(self.labels_i32()).to(dev)
+        return out
 
     def nbytes_by_component(self) -> dict:
         """Host bytes of each index component (the at-rest layout: packed
@@ -193,8 +204,8 @@ def export_device_graph(
     node_capacity: int | None = None,
     edge_capacity: int | None = None,
     quantize_int8: bool = False,
-    planner_buckets: int = 64,
     packed_labels: bool | None = None,
+    planner=None,
     device=None,
 ) -> DeviceGraph:
     """Pad the host adjacency into dense arrays (E = max degree, lane-aligned)
@@ -207,12 +218,9 @@ def export_device_graph(
     falls back to int32 with a warning otherwise; ``True`` requires the
     packed layout; ``False`` forces int32. With ``quantize_int8`` the export
     carries int8 storage and per-vector scales, and the cached norms are of
-    the dequantized rows.
+    the dequantized rows. ``planner`` is carried as given (the exec layer
+    builds it: ``repro_torch.exec.export_planned_graph``).
     """
-    # the estimator lives in the exec layer, whose package imports the search
-    # layer: import it here to keep the package import acyclic
-    from repro_torch.exec.estimator import SelectivityEstimator
-
     if et is None:
         et = EntryTable(g)
     degs = [g.adj[u].size for u in range(g.n)]
@@ -246,7 +254,10 @@ def export_device_graph(
         scored = vec_q.astype(np.float32) * scales[:, None]
     else:
         scored = np.asarray(vectors, dtype=np.float32)
-    norms = np.sum(scored * scored, axis=1, dtype=np.float32)
+    # summed in the scorers' f64 order and rounded once (within an f32 ulp of
+    # the reference's f32 sum): the norm the unfused scorer recomputes from
+    # the row is then this one, bit for bit
+    norms = warp_dot(torch.from_numpy(scored), torch.from_numpy(scored)).numpy()
     ent = et.device_arrays()
     num_x, num_y = g.space.U_X.shape[0], g.space.U_Y.shape[0]
     fits = num_x <= RANK_LIMIT and num_y <= RANK_LIMIT
@@ -281,7 +292,7 @@ def export_device_graph(
         norms=norms,
         vec_q=vec_q,
         scales=scales,
-        planner=SelectivityEstimator.from_graph(g, buckets=planner_buckets),
+        planner=planner,
         plabels=plabels,
     )
     dg.device(device)
@@ -295,15 +306,14 @@ GRAPH_FIELDS = (
 )
 
 
-def device_graph_from_numpy(arrays: dict, *, device=None) -> DeviceGraph:
+def device_graph_from_numpy(arrays: dict, *, planner=None, device=None) -> DeviceGraph:
     """A ``DeviceGraph`` over another export's arrays, taken unchanged.
 
     ``arrays`` holds the export's fields (``GRAPH_FIELDS``; absent or
-    ``None`` where the export has none, e.g. ``vec_q`` of an f32 export)
-    and the planner's (``exec.estimator.STATE_FIELDS``; without ``cum`` the
-    graph has no planner). The device bundle is staged on ``device``
-    (``None`` = the card)."""
-    from repro_torch.exec.estimator import SelectivityEstimator
+    ``None`` where the export has none, e.g. ``vec_q`` of an f32 export);
+    ``planner`` is carried as given (``repro_torch.exec.planned_graph_from_numpy``
+    rebuilds it from the same arrays). The device bundle is staged on
+    ``device`` (``None`` = the card)."""
 
     def arr(name):
         v = arrays.get(name)
@@ -312,9 +322,97 @@ def device_graph_from_numpy(arrays: dict, *, device=None) -> DeviceGraph:
     fields = {f: arr(f) for f in GRAPH_FIELDS if f != "relation"}
     if fields["plabels"] is not None:
         fields["plabels"] = fields["plabels"].view(np.uint32)
-    planner = None
-    if arrays.get("cum") is not None:
-        planner = SelectivityEstimator.from_state(arrays)
     dg = DeviceGraph(relation=str(arrays["relation"]), planner=planner, **fields)
     dg.device(device)
     return dg
+
+
+class BroadExport:
+    """Incrementally maintained *broad* (label-ignoring) adjacency of the
+    wave constructor: a padded ``[n_pad, width]`` int32 unique-neighbor table
+    (-1 padded), folded in edge by edge as the host emits them, so a wave's
+    search reads a column slice instead of a full export. A numpy copy of the
+    reference's ``BroadExport``.
+
+    ``max_width`` bounds the per-row degree: once a row is full, later
+    neighbors are dropped. Rows fill in discovery order, so what survives
+    is the node's own sweep-time neighborhood (diversity-PRUNEd close
+    neighbors) plus the earliest reverse edges — the connectivity-critical
+    set, same policy as ``export_device_graph`` under ``edge_capacity``.
+    Capping keeps the wave search's per-iteration gather narrow as hub
+    degrees grow: broad-pool recall is flat down to width ≈ Z while the
+    iteration cost scales linearly with width.
+    """
+
+    def __init__(
+        self,
+        n_pad: int,
+        *,
+        init_degree: int = 64,
+        lane: int = 32,
+        max_width: int | None = None,
+    ):
+        self._lane = lane
+        self._max_width = None
+        if max_width is not None:
+            self._max_width = ((int(max_width) + lane - 1) // lane) * lane
+        cap = max(int(init_degree), lane)
+        if self._max_width is not None:
+            cap = min(cap, self._max_width)
+        self._nbr = np.full((n_pad, cap), -1, dtype=np.int32)
+        self._deg = np.zeros(n_pad, dtype=np.int32)
+        self.max_degree = 0
+
+    def _grow(self, need: int) -> None:
+        cap = self._nbr.shape[1]
+        new_cap = max(need, cap * 2)
+        new_cap = ((new_cap + self._lane - 1) // self._lane) * self._lane
+        if self._max_width is not None:
+            new_cap = min(new_cap, self._max_width)
+        if new_cap <= cap:
+            return
+        grown = np.full((self._nbr.shape[0], new_cap), -1, dtype=np.int32)
+        grown[:, :cap] = self._nbr
+        self._nbr = grown
+
+    def add_edges(self, u: int, vs: np.ndarray) -> None:
+        """Fold the bidirectional pairs (u, v) for v in ``vs`` into the table,
+        deduplicating; full rows (``max_width``) drop further neighbors."""
+        vs = np.unique(np.asarray(vs, dtype=np.int32))
+        vs = vs[vs != u]
+        if vs.size == 0:
+            return
+        du = int(self._deg[u])
+        new = vs[~np.isin(vs, self._nbr[u, :du])]
+        if new.size == 0:
+            return
+        if du + new.size > self._nbr.shape[1]:
+            self._grow(du + int(new.size))
+        space = self._nbr.shape[1] - du
+        fwd = new[:space]
+        self._nbr[u, du : du + fwd.size] = fwd
+        self._deg[u] = du + fwd.size
+        self.max_degree = max(self.max_degree, du + int(fwd.size))
+        for v in new.tolist():
+            dv = int(self._deg[v])
+            if dv >= self._nbr.shape[1]:
+                self._grow(dv + 1)  # no-op once at max_width
+                if dv >= self._nbr.shape[1]:
+                    continue  # row full under max_width
+            # capping breaks the symmetry invariant, so membership is
+            # re-checked (rows are <= max_width wide; O(width) scan)
+            if u in self._nbr[v, :dv]:
+                continue
+            self._nbr[v, dv] = u
+            self._deg[v] = dv + 1
+            if dv + 1 > self.max_degree:
+                self.max_degree = dv + 1
+
+    def export_width(self) -> int:
+        """Current lane-aligned export width."""
+        w = max(self.max_degree, 1)
+        return ((w + self._lane - 1) // self._lane) * self._lane
+
+    def view(self, width: int | None = None) -> np.ndarray:
+        """``[n_pad, width]`` int32 neighbor table (-1 padded), no copy."""
+        return self._nbr[:, : (width or self.export_width())]

@@ -1,9 +1,10 @@
 """The port's host constructor and device export against the JAX package's.
 
 Per relation, at n=600 and d=16: the port's ``build_index(batched=False)``
-gives the reference's adjacency tuples, its export equals the reference's
-array by array (ints bit-equal, norms within 1e-6), and
-``device_graph_from_numpy`` reproduces the port's own export.
+gives the reference's adjacency tuples, its export (with the planner the
+exec layer attaches) equals the reference's array by array (ints bit-equal,
+norms within 1e-6), and ``planned_graph_from_numpy`` reproduces the port's
+own export.
 """
 import numpy as np
 import pytest
@@ -14,8 +15,9 @@ import repro.search as jsearch
 import repro_torch.core as tcore
 from repro.core.predicates import RELATIONS
 from repro.data import make_dataset
+from repro_torch.exec import export_planned_graph, planned_graph_from_numpy
 from repro_torch.exec.estimator import STATE_FIELDS
-from repro_torch.search import device_graph_from_numpy, export_device_graph
+from repro_torch.search import export_device_graph
 from repro_torch.search.device_graph import GRAPH_FIELDS
 
 N, D = 600, 16
@@ -47,7 +49,7 @@ def test_build_gives_the_reference_adjacency(built):
 def test_export_equals_reference_array_by_array(built, quantize):
     _, (jg, jet), (tg, tet) = built
     jdg = jsearch.export_device_graph(jg, jet, quantize_int8=quantize)
-    tdg = export_device_graph(tg, tet, quantize_int8=quantize, device="cpu")
+    tdg = export_planned_graph(tg, tet, quantize_int8=quantize, device="cpu")
     assert tdg.relation == jdg.relation and tdg.max_degree == jdg.max_degree
     for f in INT_FIELDS + EXACT_FIELDS:
         a, b = getattr(jdg, f), getattr(tdg, f)
@@ -65,10 +67,10 @@ def test_export_equals_reference_array_by_array(built, quantize):
 @pytest.mark.parametrize("quantize", [False, True])
 def test_device_graph_from_numpy_reproduces_the_export(built, quantize):
     _, _, (tg, tet) = built
-    tdg = export_device_graph(tg, tet, quantize_int8=quantize, device="cpu")
+    tdg = export_planned_graph(tg, tet, quantize_int8=quantize, device="cpu")
     arrays = {f: getattr(tdg, f) for f in GRAPH_FIELDS}
     arrays.update({f: getattr(tdg.planner, f) for f in STATE_FIELDS})
-    back = device_graph_from_numpy(arrays, device="cpu")
+    back = planned_graph_from_numpy(arrays, device="cpu")
     for f in GRAPH_FIELDS:
         a, b = getattr(tdg, f), getattr(back, f)
         if isinstance(a, np.ndarray):
@@ -92,14 +94,30 @@ def test_device_graph_from_numpy_reproduces_the_export(built, quantize):
 
 
 def test_forced_int32_layout_is_exported_not_searched(built):
+    """A forced int32 export carries no packed words and serves its int32
+    rectangles to every branch; a packed export serves its words to the
+    fused search and the memoized int32 view to ``fused=False``."""
     _, _, (tg, tet) = built
     tdg = export_device_graph(tg, tet, packed_labels=False, device="cpu")
     assert tdg.plabels is None and tdg.labels_i32() is tdg.labels
-    with pytest.raises(NotImplementedError, match="int32-label"):
-        tdg.serving_labels(device="cpu")
+    assert tdg.planner is None                  # the search layer builds none
+    for fused in (True, False):
+        lab = tdg.serving_labels(fused=fused, device="cpu")
+        assert lab is tdg.device("cpu").labels and lab.shape[-1] == 4
+    pdg = export_device_graph(tg, tet, device="cpu")
+    assert pdg.serving_labels(device="cpu") is pdg.device("cpu").labels
+    i32 = pdg.serving_labels(fused=False, device="cpu")
+    assert i32 is pdg.serving_labels(fused=False, device="cpu")   # memoized
+    np.testing.assert_array_equal(i32.numpy(), tdg.labels)
 
 
 def test_batched_constructor_is_not_ported():
+    """``batched=True`` builds in waves on the device it is given, and
+    ``device=None`` means the card."""
     vecs, s, t = make_dataset(40, 4, seed=0)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tcore.build_udg(vecs, s, t, "containment", batched=True)
+    g, rep = tcore.build_udg(vecs, s, t, "containment", M=4, Z=8, batched=True,
+                             wave=16, device="cpu")
+    assert rep.waves == 3 and rep.broad_searches == 2 and g.num_tuples > 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tcore.build_udg(vecs, s, t, "containment", batched=True)

@@ -3,10 +3,12 @@
 The same numpy inputs go through the Pallas kernels (interpret mode, as
 ``tests/test_kernels.py`` runs them), the jnp oracles, and the port's plain
 PyTorch versions, on the parameter matrices of ``tests/test_kernels.py``.
-Distances: equal +inf positions, finite values within ``rtol=1e-5,
-atol=1e-5·max(1, |d|)`` (f32 sums in another order). ``beam_merge``: bitwise.
-The CUDA kernels themselves run only on the card, where ``chip_smoke.py``
-holds each against these plain versions.
+Scorer distances: equal +inf positions, finite values within ``rtol=1e-5,
+atol=1e-5·max(1, |d|)`` (f32 sums in another order). Distance matrices
+(``l2dist``, ``int8_l2dist``): within ``1e-5·(‖q‖² + ‖c‖²) + 1e-6`` — the
+expanded form cancels, so its error follows the norms, not d.
+``beam_merge``: bitwise. The CUDA kernels themselves run only on the card,
+where ``chip_smoke.py`` holds each against these plain versions.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,98 @@ def assert_dist_close(got, want):
     tol = 1e-5 * np.maximum(1.0, np.abs(want[fin]))
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=0)
     assert np.all(np.abs(got[fin] - want[fin]) <= tol + 1e-5 * np.abs(want[fin]))
+
+
+def assert_matrix_close(got, want, q, c):
+    """``|got − want| <= 1e-5·(‖q‖² + ‖c‖²) + 1e-6``, entry by entry."""
+    q = np.asarray(q, np.float64)
+    c = np.asarray(c, np.float64)
+    tol = 1e-5 * ((q * q).sum(1)[:, None] + (c * c).sum(1)[None, :]) + 1e-6
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert np.all(err <= tol), float((err - tol).max())
+
+
+def test_warp_dot_sums_in_the_lane_order():
+    """The scorers' f64 order, spelled out element by element: lane l adds
+    elements 32·w·k + w·l + j in turn, then the lanes pair as a butterfly."""
+    rng = np.random.default_rng(5)
+    for d, width in ((7, 4), (200, 4), (300, 16), (1030, 16)):
+        x = rng.normal(size=(3, d)).astype(np.float32)
+        y = rng.normal(size=(3, d)).astype(np.float32)
+        for i in range(3):
+            lanes = [0.0] * 32
+            for e in range(d):
+                lane = (e // width) % 32
+                lanes[lane] = lanes[lane] + float(x[i, e]) * float(y[i, e])
+            o = 16
+            while o:
+                lanes = [lanes[l] + lanes[l + o] for l in range(o)]
+                o //= 2
+            got = ref.warp_dot(t(x[i]), t(y[i]), width)
+            assert got.item() == np.float32(lanes[0]), (d, width)
+
+
+@pytest.mark.parametrize("b,e,d", [(1, 1, 4), (3, 17, 8), (8, 128, 32), (5, 200, 64), (4, 9, 131)])
+def test_filter_dist_matches_jax(b, e, d):
+    """B4, the dense scorer, on ``tests/test_kernels.py``'s matrix (plus an
+    odd D), against the Pallas kernel and the jnp oracle."""
+    rng = np.random.default_rng(b * 100 + e)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    cand = rng.normal(size=(b, e, d)).astype(np.float32)
+    labels = rng.integers(0, 12, size=(b, e, 4)).astype(np.int32)
+    state = rng.integers(0, 12, size=(b, 2)).astype(np.int32)
+    ids = rng.integers(-1, 40, size=(b, e)).astype(np.int32)
+    args = (q, cand, labels, state, ids)
+    got = ops.filter_dist(*map(t, args)).numpy()
+    assert_dist_close(got, jops.filter_dist(*map(jnp.asarray, args)))
+    assert_dist_close(got, jops.filter_dist(*map(jnp.asarray, args), use_ref=True))
+
+
+def test_filter_dist_label_semantics_and_invalid_rows():
+    """a in [l, r] and c in [b, e], closed on both ends; an all-invalid row
+    and id -1 give +inf; a valid row's distance is ``‖c − q‖²``."""
+    q = np.zeros((2, 4), np.float32)
+    cand = np.ones((2, 3, 4), np.float32)
+    labels = np.asarray([[[0, 5, 0, 5], [2, 2, 0, 5], [0, 5, 3, 5]]] * 2, np.int32)
+    state = np.asarray([[2, 2], [2, 2]], np.int32)
+    ids = np.asarray([[0, 1, 2], [-1, -1, -1]], np.int32)
+    out = ops.filter_dist(*map(t, (q, cand, labels, state, ids))).numpy()
+    np.testing.assert_array_equal(out[0], [4.0, 4.0, np.inf])
+    assert np.isinf(out[1]).all()
+
+
+@pytest.mark.parametrize("bq,bc,d", [
+    (1, 1, 4), (7, 33, 16), (128, 128, 64), (37, 215, 70), (130, 50, 200),
+])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_l2dist_matches_jax(bq, bc, d, dtype):
+    """B5 on ``tests/test_kernels.py``'s matrix, f32 and f16 inputs."""
+    rng = np.random.default_rng(bq + bc + d)
+    q = rng.normal(size=(bq, d)).astype(dtype)
+    c = rng.normal(size=(bc, d)).astype(dtype)
+    got = ops.l2dist(t(q), t(c)).numpy()
+    assert got.dtype == np.float32 and got.shape == (bq, bc)
+    for want in (jops.l2dist(jnp.asarray(q), jnp.asarray(c)),
+                 jref.l2dist_ref(jnp.asarray(q), jnp.asarray(c))):
+        assert_matrix_close(got, np.asarray(want), q, c)
+    exact = ((q.astype(np.float64)[:, None] - c.astype(np.float64)[None]) ** 2).sum(-1)
+    assert_matrix_close(got, exact, q, c)
+
+
+@pytest.mark.parametrize("bq,bc,d", [(4, 9, 8), (65, 200, 48)])
+def test_int8_l2dist_matches_jax(bq, bc, d):
+    """B6 on ``tests/test_kernels.py``'s matrix: the same quantized rows and
+    scales through both packages."""
+    rng = np.random.default_rng(bq * bc)
+    q = rng.normal(size=(bq, d)).astype(np.float32)
+    c = rng.normal(size=(bc, d)).astype(np.float32)
+    cq, cs = jops.quantize_int8(jnp.asarray(c))
+    cq, cs = np.asarray(cq), np.asarray(cs)
+    got = ops.int8_l2dist(t(q), t(cq), t(cs)).numpy()
+    deq = cq.astype(np.float32) * cs[:, None]
+    for want in (jops.int8_l2dist(jnp.asarray(q), jnp.asarray(cq), jnp.asarray(cs)),
+                 jref.int8_l2dist_ref(jnp.asarray(q), jnp.asarray(cq), jnp.asarray(cs))):
+        assert_matrix_close(got, np.asarray(want), q, deq)
 
 
 def _gather_case(n, b, c, d, seed=0):
@@ -259,3 +353,12 @@ def test_ops_never_fall_back_off_the_cpu():
     mixed[0] = mixed[0].to("meta")
     with pytest.raises(RuntimeError, match="several devices"):
         ops.filter_dist_gather(*mixed)
+    q = torch.zeros((2, 4), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        ops.l2dist(q, q)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        ops.int8_l2dist(q, q.to(torch.int8), torch.ones(2, device="meta"))
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        ops.filter_dist(q, q[:, None], torch.zeros((2, 1, 4), dtype=torch.int32, device="meta"),
+                        torch.zeros((2, 2), dtype=torch.int32, device="meta"),
+                        torch.zeros((2, 1), dtype=torch.int32, device="meta"))

@@ -1,74 +1,30 @@
 """The port's search and planned executor against the JAX package, on the CPU.
 
 One index per relation is built and exported by the JAX package and carried
-over unchanged (``device_graph_from_numpy``), so both packages search the
-same index. The JAX side runs its jnp oracles (``use_ref=True``); the port
-runs its plain PyTorch versions (``device="cpu"``). Per row: the same plan
-and brute id list, ids equal under the tie rule of
-``repro_torch.data.parity``, distances within its tolerance, recall@10 equal.
+over unchanged (``planned_graph_from_numpy``), so both packages search the
+same index (``torch_cases``). The JAX side runs its jnp oracles
+(``use_ref=True``); the port runs its plain PyTorch versions
+(``device="cpu"``). Per row: the same plan and brute id list, ids equal under
+the tie rule of ``repro_torch.data.parity``, distances within its tolerance,
+recall@10 equal.
 """
 import numpy as np
 import pytest
 import torch
 
-import repro.core as jcore
 import repro.exec as jexec
 import repro.search as jsearch
 from repro.core.predicates import RELATIONS
-from repro.data import generate_queries, ground_truth, make_dataset, make_queries_vectors, recall_at_k
-from repro.data.workloads import QuerySet
 from repro_torch import resolve_device
 from repro_torch.data.parity import mismatches
 from repro_torch.exec import PlannerConfig, brute_topk_impl, execute_batch
-from repro_torch.exec.estimator import STATE_FIELDS
-from repro_torch.search import batched_udg_search, device_graph_from_numpy
-from repro_torch.search.device_graph import GRAPH_FIELDS
-
-N, D, NQ, K = 600, 16, 24, 10
-# per relation: interval distribution, selectivities (query i takes
-# sels[i % 3]), and planner thresholds that give each plan rows at N=600
-CASES = {
-    rel: ("uniform", (0.02, 0.15, 0.5), dict(brute_max_valid=32, wide_max_fraction=0.3))
-    for rel in RELATIONS
-}
-# feasible only with uncapped data intervals, at low selectivity
-CASES["query_within_data"] = (
-    "uncapped", (0.01, 0.03, 0.05), dict(brute_max_valid=16, wide_max_fraction=0.05))
-
-
-def graph_arrays(dg) -> dict:
-    """The numpy fields of a JAX ``DeviceGraph`` export and its planner."""
-    out = {f: getattr(dg, f) for f in GRAPH_FIELDS}
-    out.update({f: getattr(dg.planner, f) for f in STATE_FIELDS})
-    return out
+from repro_torch.search import batched_udg_search
+from torch_cases import K, assert_same, build_case, int32_export
 
 
 @pytest.fixture(scope="module", params=sorted(RELATIONS))
 def case(request):
-    rel = request.param
-    dist, sels, cfg = CASES[rel]
-    vecs, s, t = make_dataset(N, D, distribution=dist, seed=0)
-    g, et, _ = jcore.build_index(vecs, s, t, rel, batched=False)
-    qv = make_queries_vectors(NQ, D, seed=1)
-    s_q, t_q = np.empty(NQ), np.empty(NQ)
-    for j, sel in enumerate(sels):
-        idx = np.arange(j, NQ, len(sels))
-        part = generate_queries(qv[idx], s, t, rel, sel, k=K, seed=j)
-        s_q[idx], t_q[idx] = part.s_q, part.t_q
-    qs = ground_truth(QuerySet(rel, qv, s_q, t_q, 0.0, np.zeros(NQ), K), vecs, s, t)
-    exports = {}
-    for dt, quant in (("f32", False), ("int8", True)):
-        jdg = jsearch.export_device_graph(g, et, quantize_int8=quant)
-        exports[dt] = (jdg, device_graph_from_numpy(graph_arrays(jdg), device="cpu"))
-    return rel, qs, cfg, exports
-
-
-def assert_same(qs, jax_out, torch_out):
-    (ij, dj), (it, dt) = jax_out, torch_out
-    assert it.shape == ij.shape and dt.shape == dj.shape
-    bad = mismatches(ij, dj, it, dt)
-    assert not bad, bad[:5]
-    assert recall_at_k(it, qs) == recall_at_k(ij, qs)
+    return build_case(request.param)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "int8"])
@@ -165,10 +121,17 @@ def test_entry_points_need_a_device_or_cuda(case):
 
 def test_int32_label_export_is_not_searched(case):
     """An export without packed words (the rank-width fallback layout) is
-    refused by the search rather than served by another branch."""
+    searched through the int32 fused branch, which returns what the JAX
+    package's int32 branch returns and the packed branch's ids and distances
+    bit for bit."""
     _, qs, _, exports = case
-    arrays = graph_arrays(exports["f32"][0])
-    arrays["labels"] = jsearch.unpack_labels(arrays.pop("plabels"))
-    tdg = device_graph_from_numpy(arrays, device="cpu")
-    with pytest.raises(NotImplementedError, match="int32-label"):
-        batched_udg_search(tdg, qs.vectors, qs.s_q, qs.t_q, device="cpu")
+    jdg, tdg = exports["f32"]
+    idg = int32_export(jdg)
+    assert idg.plabels is None and idg.serving_labels(device="cpu").shape[-1] == 4
+    want = jsearch.batched_udg_search(
+        jdg, qs.vectors, qs.s_q, qs.t_q, k=K, use_ref=True, packed=False)
+    got = batched_udg_search(idg, qs.vectors, qs.s_q, qs.t_q, k=K, device="cpu")
+    assert_same(qs, want, got)
+    packed = batched_udg_search(tdg, qs.vectors, qs.s_q, qs.t_q, k=K, device="cpu")
+    np.testing.assert_array_equal(got[0], packed[0])
+    np.testing.assert_array_equal(got[1].view(np.int32), packed[1].view(np.int32))
