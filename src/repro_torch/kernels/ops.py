@@ -248,8 +248,11 @@ def l2dist(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def int8_l2dist(
     q: torch.Tensor, c_q: torch.Tensor, c_scale: torch.Tensor
 ) -> torch.Tensor:
-    """Squared-L2 ``[Bq, Bc]`` of f32 queries against int8 rows, each
-    dequantized by its scale before the f32 math."""
+    """Squared-L2 ``[Bq, Bc]`` of f32 queries against int8 rows with one f32
+    scale per row. The plain version dequantizes each row before the product;
+    the CUDA kernel applies the scale once to the summed product, which is
+    equal in exact arithmetic and within the distance-matrix tolerance
+    (a departure logged in ROADMAP §C)."""
     if not _on_cuda(q, c_q, c_scale):
         return ref.int8_l2dist_ref(q, c_q, c_scale)
     if c_q.dtype != torch.int8:
