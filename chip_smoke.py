@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one CUDA card and check it.
 
-    python3 chip_smoke.py [--n N] [--profile] [--out DIR]
+    python3 chip_smoke.py [--n N] [--profile] [--out DIR] [--form NAME=SOURCE ...]
 
 Phases, each of which exits non-zero when it fails. Every path phase sets the
 kernel launch counts to 0 just before it and reads them just after:
@@ -19,14 +19,21 @@ kernel launch counts to 0 just before it and reads them just after:
    and the wave graph's recall@10 is within 0.5 pt of the sequential graph's;
 5. kernels: each kernel against its plain PyTorch version on the card, at the
    paths' shapes (B=4096, the export's E, M in {1, 2}, L in {64, 128}, brute
-   C=256, f32 and int8 tables; the unfused scorer on the dense [B, E, D]
-   pre-gather; the distance matrices at ``bench_kernels.py``'s shapes and one
-   4096 x 4096 x 768 block, f32, int8 and f16) and on edge cases, then timed with CUDA events
-   beside its plain version, its bound and, where one exists, a library call;
+   C=256, f32 and int8 tables; the wave constructor's broad search, B=256,
+   C=512; the unfused scorer on the dense [B, E, D] pre-gather; the distance
+   matrices at ``bench_kernels.py``'s shapes and one 4096 x 4096 x 768 block,
+   f32, int8 and f16) and on edge cases, then timed with CUDA events beside
+   its plain version, its bound and, where one exists, a library call:
+   ``ms`` times single calls (``time_ms``), ``queued_ms`` the device time of
+   calls queued behind one another with the L2 flushed before each
+   (``queued_ms``). ``--form`` builds other sources of ``filter_dist.cu`` and
+   holds and times them on B1's and B3's inputs beside the committed one;
 6. main path: ``execute_batch(plan="auto")`` over 4096-query batches with
    selectivities that give every plan rows, plus one ``plan="brute"`` batch;
    B1-B3 must have launched there; QPS, latency, plan mix, recall@10
-   against exact ground truth;
+   against exact ground truth; with ``--form``, the same batch in turns
+   with the committed scorers and each form's, which must give the same
+   results;
 7. unfused path: ``execute_batch(plan="auto", fused=False)`` and
    ``batched_udg_search(fused=False)`` on the same batch: B4 must launch, ids
    equal the fused path's under the tie rule;
@@ -49,6 +56,7 @@ defaults to ``build/chip_smoke``).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import statistics
@@ -88,7 +96,9 @@ FP32_OPS_PER_S = 67e12        # H100 SXM, outside the tensor cores
 TF32_OPS_PER_S = 495e12       # H100 SXM, dense TF32 on the tensor cores (NVIDIA data sheet)
 FP16_OPS_PER_S = 989e12       # H100 SXM, dense FP16 on the tensor cores (NVIDIA data sheet)
 CMP_OPS_PER_S = 33.5e12       # one compare per FP32 lane per clock
+SLEEP_CYCLES_PER_CALL = 400_000   # about 0.2 ms of host time per queued call
 RECORD: dict = {}
+FORMS: dict = {}   # name -> another build of filter_dist.cu (--form)
 
 
 def require(ok, what: str) -> None:
@@ -102,7 +112,10 @@ def emit(obj: dict) -> None:
 
 
 def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warm`` calls."""
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warm`` calls,
+    each call timed alone from an idle stream: its device time plus the host
+    time it spends before its first kernel is queued (the kernel table's
+    ``ms``)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -116,6 +129,40 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+_FLUSH: dict = {}
+
+
+def queued_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Device time of one call of ``fn`` with the host's share taken out:
+    ``reps`` calls queued behind a sleep kernel long enough for the host to
+    enqueue them all, each after a read of twice the L2's size (so the call
+    finds its inputs in device memory, as the search loop finds most rows)
+    and timed by its own pair of CUDA events; the median."""
+    dev = torch.cuda.current_device()
+    if dev not in _FLUSH:
+        l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 50 << 20)
+        _FLUSH[dev] = torch.ones(2 * l2 // 4, dtype=torch.int32, device="cuda")
+    flush = _FLUSH[dev]
+    for _ in range(warm):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
+    for t0, t1 in events:
+        flush.sum()
+        t0.record()
+        fn()
+        t1.record()
+    torch.cuda.synchronize()
+    return statistics.median(t0.elapsed_time(t1) for t0, t1 in events)
+
+
+def kernel_times(fn) -> dict:
+    """A kernel's ``ms`` (single calls, ``time_ms``) and ``queued_ms``."""
+    return {"ms": time_ms(fn), "queued_ms": queued_ms(fn)}
 
 
 def bound(nbytes: float, nops: float, ops_rate: float) -> tuple:
@@ -158,7 +205,13 @@ def scorer_bound(out, open_out, cand, label_key, *, D, elt, scaled, label_bytes,
     over an empty bitmap), each distinct (query, word) once; the row, norm
     and scale of each distinct row that is scored; ``per_query`` bytes of
     query, state and expanded ids per query; 2·D operations per distinct
-    (query, row) pair that is scored."""
+    (query, row) pair that is scored.
+
+    Beside it, and no bound: ``pair_bytes``, the bytes of a kernel that
+    reads the row, norm and scale of every scored slot from device memory
+    (no row shared between queries), plus every slot's id and output, and
+    ``pair_floor_ms``, that traffic at the card's memory rate: the re-read
+    floor of a per-query gather."""
     B, C = cand.shape
     row_of = torch.arange(B, device=cand.device)[:, None].long() << 32
     fin = torch.isfinite(out)
@@ -166,11 +219,85 @@ def scorer_bound(out, open_out, cand, label_key, *, D, elt, scaled, label_bytes,
     words = int(torch.unique((row_of + (cand.long() >> 5))[torch.isfinite(open_out)]).numel())
     rows_read = int(torch.unique(cand[fin]).numel())
     pairs = int(torch.unique((row_of + cand.long())[fin]).numel())
+    row_bytes = D * elt + 4 + (4 if scaled else 0)
     nbytes = (B * C * 8 + labels * label_bytes + words * 4
-              + rows_read * (D * elt + 4 + (4 if scaled else 0)) + B * per_query)
+              + rows_read * row_bytes + B * per_query)
+    pair_bytes = int(fin.sum()) * row_bytes + B * C * 8
     b_ms, b_by = bound(nbytes, pairs * 2 * D, FP32_OPS_PER_S)
     return {"bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes, "scored": pairs,
-            "rows_read": rows_read, "labels_read": labels, "words_read": words}
+            "rows_read": rows_read, "labels_read": labels, "words_read": words,
+            "pair_bytes": pair_bytes, "pair_floor_ms": pair_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def build_forms(forms, out: Path) -> None:
+    """Builds other sources of ``filter_dist.cu`` (``NAME=SOURCE``) beside the
+    committed one, all at once, for ``check_kernels`` and ``main_path_ab`` to
+    run on the same inputs. A source's interface is read from the library:
+    one that exports ``filter_dist_abi`` must give the committed build's
+    number; one that does not is taken to have the earlier gather entry
+    points, which take no ``tile`` argument."""
+    if not forms:
+        return
+    abi = _build.library("filter_dist").filter_dist_abi()
+    where = out / "forms"
+    where.mkdir(parents=True, exist_ok=True)
+    specs = [f.split("=", 1) for f in forms]
+    require(all(len(s) == 2 for s in specs), "--form takes NAME=SOURCE")
+    procs = [(name, src, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(where / f"lib{name}.so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for name, src in specs]
+    logs = []
+    for name, src, proc in procs:
+        log, _ = proc.communicate()
+        logs.append(f"== {name}: {src} ==\n{log}\n")
+        require(proc.returncode == 0, f"nvcc {src} failed:\n{log}")
+        lib = ctypes.CDLL(str(where / f"lib{name}.so"))
+        tiled = hasattr(lib, "filter_dist_abi")
+        require(not tiled or lib.filter_dist_abi() == abi,
+                f"{src}: filter_dist_abi {lib.filter_dist_abi() if tiled else None}, "
+                f"the committed build has {abi}")
+        for fn, argtypes in _build.ARGTYPES["filter_dist"].items():
+            if not tiled and fn != "filter_dist_dense":
+                argtypes = argtypes[:-3] + argtypes[-2:]
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        FORMS[name] = lib if tiled else _WithoutTile(lib)
+    (out / "nvcc_forms.txt").write_text("".join(logs))
+
+
+class _WithoutTile:
+    """A library whose gather entry points take no tile: calls them with
+    that argument (the 3rd from the end) left out."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, fn):
+        f = getattr(self._lib, fn)
+        return f if fn == "filter_dist_dense" else (lambda *a: f(*a[:-3], *a[-2:]))
+
+
+def form_times(fn, want, what: str) -> dict:
+    """Each form in place of the committed build: held bitwise against the
+    plain version, then timed on the same inputs by both measures."""
+    times = {}
+    for name, lib in FORMS.items():
+        with _build.swapped("filter_dist", lib):
+            bitwise(fn(), want, f"{what} ({name})")
+            times[name] = kernel_times(fn)
+    return times
+
+
+def scorer_case(fn, plain, want, **fields) -> dict:
+    """A B1/B3 case: the committed kernel's times, its plain version's, each
+    form's and the committed kernel's once more, in that order."""
+    case = {**fields, **kernel_times(fn), "plain_ms": time_ms(plain)}
+    if FORMS:
+        case["forms"] = form_times(fn, want, fields["kernel"])
+        case["again"] = kernel_times(fn)
+    case["fraction_of_bound"] = case["bound_ms"] / case["ms"]
+    case["queued_fraction_of_bound"] = case["bound_ms"] / case["queued_ms"]
+    return case
 
 
 def pack(lab: torch.Tensor) -> torch.Tensor:
@@ -262,19 +389,20 @@ def check_kernels(dg, q, states, ep) -> dict:
             require(bool(torch.isinf(got[0]).all()), "an all-padding row scored")
             open_out = ref.filter_dist_gather_packed_ref(*args[:7], torch.zeros_like(visited), scales)
             label_key = (cur.long()[:, :, None] * E + torch.arange(E, device=dev)).reshape(B, M * E)
-            case = {
-                "kernel": "filter_dist_gather_packed", "table": dt, "B": B, "M": M,
-                "E": E, "D": D, "max_abs_err": err,
-                "ms": time_ms(lambda: ops.filter_dist_gather_packed(*args, scales=scales)),
-                "plain_ms": time_ms(lambda: ref.filter_dist_gather_packed_ref(*args, scales)),
+            case = scorer_case(
+                lambda: ops.filter_dist_gather_packed(*args, scales=scales),
+                lambda: ref.filter_dist_gather_packed_ref(*args, scales), want,
+                kernel="filter_dist_gather_packed", table=dt, B=B, M=M, E=E, D=D,
+                max_abs_err=err, tile=ops.scorer_tile(B, M * E, ops._sm_count(dev)),
                 **scorer_bound(want, open_out, cand, label_key, D=D, elt=table.element_size(),
                                scaled=scales is not None, label_bytes=8,
-                               per_query=D * 4 + 8 + M * 4),
-            }
+                               per_query=D * 4 + 8 + M * 4))
             cases.append(case)
             if M == 1 and dt == "f32":
                 rows["filter_dist_gather_packed"] = case
                 d_new, nb = got, cand     # real candidates for the merge check
+            if M == 1:
+                cases.append(int32_case(dg, args, want, scales, cand, B))
 
     # B2: beam merge, L = 64 against the scorer's output, L = 128 wide
     for L, C in ((BEAM, E), (2 * BEAM, 2 * E)):
@@ -309,7 +437,7 @@ def check_kernels(dg, q, states, ep) -> dict:
         b_ms, b_by = bound(nbytes, B * (L + C) * lg, CMP_OPS_PER_S)
         case = {
             "kernel": "beam_merge", "B": B, "L": L, "C": C, "max_abs_err": 0.0,
-            "ms": time_ms(lambda: ops.beam_merge(*args, n=n)),
+            **kernel_times(lambda: ops.beam_merge(*args, n=n)),
             "plain_ms": time_ms(lambda: ref.beam_merge_ref(*args, n=n)),
             "bound_ms": b_ms, "bound_by": b_by,
         }
@@ -338,25 +466,82 @@ def check_kernels(dg, q, states, ep) -> dict:
         want = ref.filter_dist_gather_ref(*args, scales)
         err = bitwise(got, want, "filter_dist_gather")
         require(bool(torch.isinf(got[0]).all()), "an all-padding row scored")
-        case = {
-            "kernel": "filter_dist_gather", "table": dt, "B": B, "C": V, "D": D,
-            "max_abs_err": err,
-            "ms": time_ms(lambda: ops.filter_dist_gather(*args, scales=scales)),
-            "plain_ms": time_ms(lambda: ref.filter_dist_gather_ref(*args, scales)),
+        case = scorer_case(
+            lambda: ops.filter_dist_gather(*args, scales=scales),
+            lambda: ref.filter_dist_gather_ref(*args, scales), want,
+            kernel="filter_dist_gather", table=dt, B=B, C=V, D=D, max_abs_err=err,
+            tile=ops.scorer_tile(B, V, ops._sm_count(dev)),
             # the bitmap is empty here, so ``want`` is its own open version
             **scorer_bound(want, want, bf, torch.arange(B * V, device=dev).view(B, V), D=D,
                            elt=table.element_size(), scaled=scales is not None,
-                           label_bytes=16, per_query=D * 4 + 8),
-        }
+                           label_bytes=16, per_query=D * 4 + 8))
         cases.append(case)
         if dt == "f32":
             rows["filter_dist_gather"] = case
+    cases.append(wave_case(di.table, di.norms, di.nbr, visited, gen))
     cases += check_scalar_rows(dev)
     rows.update(check_dense_scorer(dg, q, states, ep, cases))
     rows.update(check_distance_matrices(di.table, cases))
     torch.cuda.synchronize()
     RECORD["kernel_cases"] = cases
     return rows
+
+
+def int32_case(dg, packed_args, want, scales, cand, B) -> dict:
+    """B3 at the int32 search branch's shape: B1's M = 1 inputs with each
+    candidate's label as a pre-gathered int32 rectangle ([B, E, 4]), as
+    ``search_core`` passes them over an int32 export; the same outputs as B1
+    bit for bit."""
+    table, _, norms, q, cur, _, states, visited = packed_args
+    lab = dg.device_labels_i32(q.device)[cur[:, 0].long()].contiguous()
+    args = (table, norms, q, cand, lab, states, visited)
+    got = ops.filter_dist_gather(*args, scales=scales)
+    err = bitwise(got, want, "filter_dist_gather (int32 path) against the packed scorer")
+    open_out = ref.filter_dist_gather_ref(*args[:6], torch.zeros_like(visited), scales)
+    return scorer_case(
+        lambda: ops.filter_dist_gather(*args, scales=scales),
+        lambda: ref.filter_dist_gather_ref(*args, scales), want,
+        kernel="filter_dist_gather (int32 path)", table="int8" if scales is not None else "f32",
+        B=B, C=cand.shape[1], D=table.shape[1], max_abs_err=err,
+        tile=ops.scorer_tile(B, cand.shape[1], ops._sm_count(q.device)),
+        **scorer_bound(want, open_out, cand, torch.arange(cand.numel(), device=q.device).view_as(cand),
+                       D=table.shape[1], elt=table.element_size(), scaled=scales is not None,
+                       label_bytes=16, per_query=table.shape[1] * 4 + 8))
+
+
+def wave_case(table, norms, nbr, visited, gen) -> dict:
+    """B3 at the wave constructor's shape, f32 as the constructor's table:
+    B = 256 (one wave) and C = 4 x 128 (``expand = min(4, Z)`` over the
+    broad rows' cap ``max(Z, 2M, 32)`` = 128), all-zero rectangles and
+    state as in the broad search. Queries are 256 random corpus rows; each
+    one's candidates are the first 128 neighbours of 4 random nodes of the
+    export; the bitmap is the first 256 rows of ``check_kernels``' (about 25 %
+    of the bits set). Held bitwise against the plain version and timed; its
+    launches are the index phase's."""
+    dev = table.device
+    n, D = table.shape
+    WB, WX, WC = 256, 4, 128
+    nodes = torch.randint(0, n, (WB, WX), generator=gen, device=dev)
+    q = table[torch.randint(0, n, (WB,), generator=gen, device=dev)].contiguous()
+    cand = torch.full((WB * WX, WC), -1, dtype=torch.int32, device=dev)   # -1 past a short row
+    cand[:, :min(WC, nbr.shape[1])] = nbr[nodes.view(-1), :WC]
+    cand = cand.view(WB, WX * WC)
+    args = (table, norms, q, cand, torch.zeros((WB, WX * WC, 4), dtype=torch.int32, device=dev),
+            torch.zeros((WB, 2), dtype=torch.int32, device=dev), visited[:WB].contiguous())
+    got = ops.filter_dist_gather(*args)
+    want = ref.filter_dist_gather_ref(*args)
+    err = bitwise(got, want, "filter_dist_gather (wave shape)")
+    open_out = ref.filter_dist_gather_ref(*args[:6], torch.zeros_like(args[6]))
+    return scorer_case(
+        lambda: ops.filter_dist_gather(*args), lambda: ref.filter_dist_gather_ref(*args), want,
+        kernel="filter_dist_gather (wave)", table="f32", B=WB, C=WX * WC, D=D, max_abs_err=err,
+        inputs="256 random corpus rows as queries; the first 128 neighbours of 4 random "
+               "export nodes each; zero rectangles and state; visited ~25% of the bits",
+        launches=RECORD.get("index", {}).get("b3_launches"),
+        tile=ops.scorer_tile(WB, WX * WC, ops._sm_count(dev)),
+        **scorer_bound(want, open_out, cand, torch.arange(cand.numel(), device=dev).view_as(cand),
+                       D=D, elt=4, scaled=False,
+                       label_bytes=16, per_query=D * 4 + 8))
 
 
 def check_dense_scorer(dg, q, states, ep, cases) -> dict:
@@ -385,7 +570,7 @@ def check_dense_scorer(dg, q, states, ep, cases) -> dict:
     case = {
         "kernel": "filter_dist", "B": B, "E": E, "D": D, "max_abs_err": bitwise(got, want, "filter_dist"),
         "scored": int(passed.sum()),
-        "ms": time_ms(lambda: ops.filter_dist(*args)),
+        **kernel_times(lambda: ops.filter_dist(*args)),
         "plain_ms": time_ms(lambda: ref.filter_dist_ref(*args), reps=5, warm=1),
         "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
     }
@@ -445,7 +630,7 @@ def check_distance_matrices(table, cases) -> dict:
             nbytes = bq * d * q_elt + bc * d * elt + bq * bc * 4 + (bc * 4 if elt == 1 else 0)
             b_ms, b_by = bound(nbytes, passes * 2 * bq * bc * d, rate)
             case = {"kernel": name, "Bq": bq, "Bc": bc, "D": d, "max_abs_err": err,
-                    "tol_share": share, "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                    "tol_share": share, **kernel_times(fn), "plain_ms": time_ms(plain),
                     "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
                     "passes": passes, "pass_type": "fp16" if rate == FP16_OPS_PER_S else "tf32"}
             case["fraction_of_bound"] = b_ms / case["ms"]
@@ -467,9 +652,8 @@ def check_distance_matrices(table, cases) -> dict:
     return rows
 
 
-def profile_batch(run, batch_ms: float, out: Path) -> dict:
-    """Device time by kernel over one traced batch; the idle share is
-    1 - device busy time / the untraced median batch time."""
+def traced_ms(run) -> dict:
+    """Device time and launches by kernel name over one traced call of ``run``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -481,12 +665,48 @@ def profile_batch(run, batch_ms: float, out: Path) -> dict:
         if e.device_type == DeviceType.CUDA:
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    return by_name
+
+
+def profile_batch(run, batch_ms: float, out: Path) -> dict:
+    """Device time by kernel over one traced batch; the idle share is
+    1 - device busy time / the untraced median batch time."""
+    by_name = traced_ms(run)
     busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     (out / "profile.json").write_text(json.dumps(top, indent=1))
     return {"device_busy_ms": busy, "batch_ms": batch_ms,
             "idle_share": 1.0 - busy / batch_ms,
             "top": [[name[:60], round(t, 3), c] for name, (t, c) in top[:12]]}
+
+
+def main_path_ab(run, want, rounds: int = 5) -> dict:
+    """The main path's batch with the committed scorers and with each
+    ``--form`` in their place, in turns (committed, form, form, committed,
+    ... ``rounds`` times a form), on one index in one process: the same ids
+    and distances bit for bit; each side's batch times and traced scorer
+    device time (``filter_dist_kernel``: B1 and B3)."""
+    committed = _build.library("filter_dist")
+    res = {}
+    for form, lib in FORMS.items():
+        libs = {"committed": committed, form: lib}
+        lat = {name: [] for name in libs}
+        for name in ("committed", form, form, "committed") * rounds:
+            with _build.swapped("filter_dist", libs[name]):
+                t0 = time.perf_counter()
+                ids, d = run()
+                lat[name].append(time.perf_counter() - t0)
+            require(np.array_equal(ids, want[0]) and np.array_equal(d.view(np.int32), want[1].view(np.int32)),
+                    f"the main path with the {name} scorers gave other results")
+        res[form] = {}
+        for name, l in libs.items():
+            with _build.swapped("filter_dist", l):
+                scorer = [v for k, v in traced_ms(run).items() if "filter_dist_kernel" in k]
+            res[form][name] = {"qps": BATCH / statistics.median(lat[name]),
+                               "batch_ms": [t * 1e3 for t in lat[name]],
+                               "scorer_device_ms": sum(t for t, _ in scorer),
+                               "scorer_launches": sum(c for _, c in scorer)}
+    return res
 
 
 def make_queries(n_q, s, t, sels, seed):
@@ -662,6 +882,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one auto batch with torch.profiler")
+    ap.add_argument("--form", action="append", default=[], metavar="NAME=SOURCE",
+                    help="another source of filter_dist.cu to build, hold and time beside "
+                         "the committed one on B1's and B3's inputs and on the main path; "
+                         "repeatable")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -685,7 +909,11 @@ def main(argv=None) -> int:
     build_s = _build.build_all()
     (out / "nvcc.txt").write_text("".join(
         f"== {name}.cu ==\n{log}\n" for name, log in _build.LOGS.items()))
-    emit({"build": {"nvcc_s": round(build_s, 2), "sources": sorted(_build.ARGTYPES)}})
+    require(_build.library("filter_dist").filter_dist_max_tile() == ops.SCORER_MAX_TILE,
+            "filter_dist.cu's kMaxTile is not ops.SCORER_MAX_TILE")
+    build_forms(args.form, out)
+    emit({"build": {"nvcc_s": round(build_s, 2), "sources": sorted(_build.ARGTYPES),
+                    "forms": sorted(FORMS)}})
 
     # 3. index: the wave constructor (batched=None at this n), searches on the card
     n = args.n
@@ -779,6 +1007,9 @@ def main(argv=None) -> int:
         emit({"profile": profile_batch(
             lambda: execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto"),
             statistics.median(timed) * 1e3, out)})
+    if FORMS:
+        emit({"main_path_ab": main_path_ab(
+            lambda: execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto"), (ids, d))})
 
     # 7. unfused path
     path_launches = {"main": launches}
@@ -829,7 +1060,8 @@ def main(argv=None) -> int:
             "launches": path_launches[path][name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            "fraction_of_bound": r["bound_ms"] / r["ms"], "ok": True,
+            "fraction_of_bound": r["bound_ms"] / r["ms"], "queued_ms": r["queued_ms"],
+            "ok": True,
         })
     RECORD["seconds"] = time.perf_counter() - t_all
     (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

@@ -9,6 +9,7 @@ runs at import time, so the CPU tests can import every module.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -30,11 +31,11 @@ ARGTYPES = {
     "filter_dist": {
         "filter_dist_gather_packed": [
             _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P,
-            _I, _I, _P, _P,
+            _I, _I, _I, _P, _P,
         ],
         "filter_dist_gather": [
-            _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P,
-            _P,
+            _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+            _P, _P,
         ],
         "filter_dist_dense": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     },
@@ -109,3 +110,16 @@ def library(name: str) -> ctypes.CDLL:
                     getattr(lib, fn).restype = ctypes.c_int
                 _libs[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def swapped(name: str, lib):
+    """Within the block the wrappers call ``lib``, another build of
+    ``csrc/<name>.cu``, in place of ``library(name)``: for comparing two
+    builds of one source in one process."""
+    keep = library(name)
+    _libs[name] = lib
+    try:
+        yield
+    finally:
+        _libs[name] = keep

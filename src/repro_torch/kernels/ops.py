@@ -65,6 +65,36 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
 
 
+# The gather scorers' grid: a block of 8 warps tests up to 768 candidates of
+# one query, 3 a thread. Equal to csrc/filter_dist.cu's kMaxTile, which the
+# library reports as filter_dist_max_tile() (chip_smoke.py checks the two).
+SCORER_MAX_TILE = 768
+BLOCKS_PER_SM = 8                  # blocks the tile aims for on every SM
+
+
+def scorer_tile(B: int, C: int, sms: int) -> int:
+    """Candidates per block for ``B`` queries of ``C`` candidates on a card
+    of ``sms`` SMs: a multiple of 32, at most ``SCORER_MAX_TILE``, small
+    enough that the ``B · ceil(C / tile)`` blocks give every SM about
+    ``BLOCKS_PER_SM`` of them (down to 64 candidates a block), and as large
+    as that allows, so each query's fixed costs are paid by few blocks."""
+    if B <= 0 or C <= 0:
+        return 32
+    cdiv = lambda x, y: -(-x // y)           # noqa: E731
+    per_query = max(cdiv(C, SCORER_MAX_TILE),
+                    min(cdiv(BLOCKS_PER_SM * sms, B), cdiv(C, 64)))
+    return min(SCORER_MAX_TILE, cdiv(cdiv(C, per_query), 32) * 32)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 def _table_args(table, norms, scales, q):
     """Checks shared by both scorers; returns (n, D, is_int8, vec)."""
     n, D = table.shape
@@ -135,7 +165,7 @@ def filter_dist_gather(
     rc = _build.library("filter_dist").filter_dist_gather(
         _ptr(table), is_int8, n, D, _ptr(norms), _ptr(scales), _ptr(q),
         _ptr(cand_ids), B, C, _ptr(labels), _ptr(state), _ptr(visited), W,
-        vec, _ptr(out), _stream(q),
+        vec, scorer_tile(B, C, _sm_count(q.device)), _ptr(out), _stream(q),
     )
     _raise_on(rc, "filter_dist_gather")
     LAUNCHES["filter_dist_gather"] += 1
@@ -173,7 +203,8 @@ def filter_dist_gather_packed(
     rc = _build.library("filter_dist").filter_dist_gather_packed(
         _ptr(table), is_int8, n, D, _ptr(norms), _ptr(scales), _ptr(q),
         _ptr(cur_ids), M, _ptr(cand_ids), B, M * E, _ptr(plabels), E,
-        _ptr(state), _ptr(visited), W, vec, _ptr(out), _stream(q),
+        _ptr(state), _ptr(visited), W, vec, scorer_tile(B, M * E, _sm_count(q.device)),
+        _ptr(out), _stream(q),
     )
     _raise_on(rc, "filter_dist_gather_packed")
     LAUNCHES["filter_dist_gather_packed"] += 1
