@@ -26,14 +26,21 @@ kernel launch counts to 0 just before it and reads them just after:
    its plain version, its bound and, where one exists, a library call:
    ``ms`` times single calls (``time_ms``), ``queued_ms`` the device time of
    calls queued behind one another with the L2 flushed before each
-   (``queued_ms``). ``--form`` builds other sources of ``filter_dist.cu`` and
-   holds and times them on B1's and B3's inputs beside the committed one;
+   (``queued_ms``). B2 also with the visited bits fused (``fused_queued_ms``;
+   the bitmap after the call held against ``ref.set_bits``), on the
+   scorer's output (L 64, C 720), with that beam shuffled, and on a dense
+   wide merge (L 128, C 1440); untimed at L 7, 32, 200, 300, 600 and 1100
+   (each of the kernel's instances, and its chunked selection). ``--form`` builds other sources of
+   ``filter_dist.cu`` or ``beam_merge.cu`` and holds and times them on the
+   same inputs beside the committed one;
 6. main path: ``execute_batch(plan="auto")`` over 4096-query batches with
    selectivities that give every plan rows, plus one ``plan="brute"`` batch;
    B1-B3 must have launched there; QPS, latency, plan mix, recall@10
-   against exact ground truth; with ``--form``, the same batch in turns
-   with the committed scorers and each form's, which must give the same
-   results;
+   against exact ground truth. Then, outside the counted run, B2 on the
+   loop's own inputs (``beam_merge_loop``: iterations 1, 8, 32 and the last
+   of the graph and the wide search, bitwise, timed, with B2's launches by
+   search) and, with ``--form``, the same batch in turns with the
+   committed kernels and each form's, which must give the same results;
 7. unfused path: ``execute_batch(plan="auto", fused=False)`` and
    ``batched_udg_search(fused=False)`` on the same batch: B4 must launch, ids
    equal the fused path's under the tie rule;
@@ -45,7 +52,9 @@ kernel launch counts to 0 just before it and reads them just after:
    both matrices are then held against their plain versions, and both
    kernels timed, at this shape;
 10. parity: 128 of the main path's queries on the CPU (plain versions) and on
-    the card, held equal under the tie rule of ``repro_torch.data.parity``.
+    the card, held equal under the tie rule of ``repro_torch.data.parity``;
+    then 8 of them at beam 300, whose wide search (L 600) takes B2's chunked
+    selection.
 
 Prints one JSON object per line; the line before the last is the kernel
 table and the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -56,6 +65,7 @@ defaults to ``build/chip_smoke``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -91,6 +101,7 @@ PARITY_BUILD = dict(n=2048, d=128, M=8, Z=32, K_p=4, wave=128)   # constructor p
 L2_SHAPES = ((64, 512, 128), (256, 4096, 128), (64, 512, 768), (4096, 4096, 768))
 SELECTIVITIES = (0.003, 0.01, 0.03, 0.1, 0.3)   # query i gets SELECTIVITIES[i % 5]
 BRUTE_SELECTIVITY = 0.003     # <= 256 valid objects at n <= 65536
+WIDE_BEAM, WIDE_BEAM_QUERIES = 300, 8   # parity at a beam wider than B2's registers
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, outside the tensor cores
 TF32_OPS_PER_S = 495e12       # H100 SXM, dense TF32 on the tensor cores (NVIDIA data sheet)
@@ -99,6 +110,7 @@ CMP_OPS_PER_S = 33.5e12       # one compare per FP32 lane per clock
 SLEEP_CYCLES_PER_CALL = 400_000   # about 0.2 ms of host time per queued call
 RECORD: dict = {}
 FORMS: dict = {}   # name -> another build of filter_dist.cu (--form)
+MERGE_FORMS: dict = {}   # name -> another build of beam_merge.cu (--form)
 
 
 def require(ok, what: str) -> None:
@@ -230,15 +242,18 @@ def scorer_bound(out, open_out, cand, label_key, *, D, elt, scaled, label_bytes,
 
 
 def build_forms(forms, out: Path) -> None:
-    """Builds other sources of ``filter_dist.cu`` (``NAME=SOURCE``) beside the
-    committed one, all at once, for ``check_kernels`` and ``main_path_ab`` to
-    run on the same inputs. A source's interface is read from the library:
-    one that exports ``filter_dist_abi`` must give the committed build's
-    number; one that does not is taken to have the earlier gather entry
-    points, which take no ``tile`` argument."""
+    """Builds other sources of ``filter_dist.cu`` or ``beam_merge.cu``
+    (``NAME=SOURCE``) beside the committed ones, all at once, for the kernel
+    checks and ``main_path_ab`` to run on the same inputs. Which kernel a
+    source builds, and its interface, are read from the library: one that
+    exports ``beam_merge`` is a B2 form, any other a B1/B3 form; one that
+    exports ``filter_dist_abi`` / ``beam_merge_abi`` must give the committed
+    build's number; one that does not is taken to have the earlier entry
+    points (gather scorers without ``tile``, a merge without the bitmap)."""
     if not forms:
         return
-    abi = _build.library("filter_dist").filter_dist_abi()
+    abis = {"filter_dist": _build.library("filter_dist").filter_dist_abi(),
+            "beam_merge": _build.library("beam_merge").beam_merge_abi()}
     where = out / "forms"
     where.mkdir(parents=True, exist_ok=True)
     specs = [f.split("=", 1) for f in forms]
@@ -252,16 +267,22 @@ def build_forms(forms, out: Path) -> None:
         logs.append(f"== {name}: {src} ==\n{log}\n")
         require(proc.returncode == 0, f"nvcc {src} failed:\n{log}")
         lib = ctypes.CDLL(str(where / f"lib{name}.so"))
-        tiled = hasattr(lib, "filter_dist_abi")
-        require(not tiled or lib.filter_dist_abi() == abi,
-                f"{src}: filter_dist_abi {lib.filter_dist_abi() if tiled else None}, "
-                f"the committed build has {abi}")
-        for fn, argtypes in _build.ARGTYPES["filter_dist"].items():
-            if not tiled and fn != "filter_dist_dense":
+        kind = "beam_merge" if hasattr(lib, "beam_merge") else "filter_dist"
+        current = hasattr(lib, f"{kind}_abi")
+        got = getattr(lib, f"{kind}_abi")() if current else None
+        require(not current or got == abis[kind],
+                f"{src}: {kind}_abi {got}, the committed build has {abis[kind]}")
+        for fn, argtypes in _build.ARGTYPES[kind].items():
+            if not current and kind == "beam_merge":
+                argtypes = argtypes[:9] + argtypes[11:]
+            elif not current and fn != "filter_dist_dense":
                 argtypes = argtypes[:-3] + argtypes[-2:]
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        FORMS[name] = lib if tiled else _WithoutTile(lib)
+        if kind == "beam_merge":
+            MERGE_FORMS[name] = lib if current else _WithoutVisited(lib)
+        else:
+            FORMS[name] = lib if current else _WithoutTile(lib)
     (out / "nvcc_forms.txt").write_text("".join(logs))
 
 
@@ -275,6 +296,43 @@ class _WithoutTile:
     def __getattr__(self, fn):
         f = getattr(self._lib, fn)
         return f if fn == "filter_dist_dense" else (lambda *a: f(*a[:-3], *a[-2:]))
+
+
+class _WithoutVisited:
+    """A ``beam_merge`` library of the earlier interface, which takes no
+    bitmap: calls it with the bitmap and its width (the 10th and 11th
+    arguments) left out; the bitmap must be null (``b2_form`` sets the bits
+    in torch after the call)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def beam_merge(self, *a):
+        require(a[9] is None, "an earlier beam_merge build was given a bitmap")
+        return self._lib.beam_merge(*a[:9], *a[11:])
+
+
+@contextlib.contextmanager
+def b2_form(lib):
+    """``lib`` in place of the committed ``beam_merge`` build. A build of the
+    earlier interface gets no bitmap: ``ops.beam_merge`` sets the kept bits
+    after it with ``ref.set_bits``, as the packed loop did before the bits
+    were fused."""
+    merge = ops.beam_merge
+
+    def with_torch_bits(*args, n, visited=None):
+        out = merge(*args, n=n)
+        if visited is not None:
+            ref.set_bits(visited, args[4], out[3], n)
+        return out
+
+    with _build.swapped("beam_merge", lib):
+        if isinstance(lib, _WithoutVisited):
+            ops.beam_merge = with_torch_bits
+        try:
+            yield
+        finally:
+            ops.beam_merge = merge
 
 
 def form_times(fn, want, what: str) -> dict:
@@ -349,6 +407,184 @@ def check_scalar_rows(dev) -> list:
     return cases
 
 
+def sectors(t: torch.Tensor, need: torch.Tensor) -> int:
+    """The 32-byte sectors of the contiguous tensor ``t`` that hold an
+    element where ``need`` is set."""
+    at = t.data_ptr() + torch.nonzero(need.reshape(-1)).squeeze(1) * t.element_size()
+    return int(torch.unique_consecutive(at // 32).numel())
+
+
+def merge_bound(args, keep, words: int = 0) -> dict:
+    """B2's bound from this run's inputs: the bytes the function must move,
+    each needed input byte read once and each output written once, against
+    its compares. Read: every beam and candidate distance (a +inf says the
+    candidate is dead); the 32-byte sectors of ``cand_ids`` that hold a live
+    (not +inf) candidate, whose id the dedup or the output needs (a +inf
+    candidate's never: the reference keys it as n and does not output it);
+    the sectors of ``beam_ids`` and ``beam_exp`` that hold a beam entry that
+    reaches the output. Written: ids and d (4 bytes), exp and keep (1).
+    With the bits fused, each visited word that a kept id touches, read and
+    written (``words``, 8 bytes each). Compares: ``ceil(log2(L + C))`` for
+    each beam entry and live candidate, one a lane a clock. ``keep`` is the
+    plain version's."""
+    beam_d, beam_ids, beam_exp, cand_d, cand_ids = args
+    B, L = beam_d.shape
+    C = cand_d.shape[1]
+    live = cand_d != float("inf")
+    # a beam entry reaches the output when fewer than L pairs precede it:
+    # beam entries of a smaller key, or the same key and a lower index, and
+    # survivors (kept, or -inf) of a smaller key (their indices are larger)
+    bk = ref.mono_key(beam_d)
+    order = torch.sort(bk, dim=1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(1, order, torch.arange(L, device=bk.device).expand(B, L))
+    surv = keep | (cand_d == float("-inf"))
+    ck = torch.sort(torch.where(surv, ref.mono_key(cand_d), 1 << 32), dim=1).values
+    out_beam = rank + torch.searchsorted(ck, bk) < L
+    id_sectors = sectors(cand_ids, live)
+    beam_sectors = sectors(beam_ids, out_beam) + sectors(beam_exp, out_beam)
+    nbytes = (B * L * 4 + B * C * 4 + 32 * (id_sectors + beam_sectors)
+              + B * (9 * L + C) + 8 * words)
+    lg = max(1, int(np.ceil(np.log2(L + C))))
+    b_ms, b_by = bound(nbytes, (B * L + int(live.sum())) * lg, CMP_OPS_PER_S)
+    return {"bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+            "id_sectors": id_sectors, "beam_sectors": beam_sectors}
+
+
+def same_merge(got, want, what: str) -> None:
+    """The four outputs of a merge equal bit for bit."""
+    for g_, w_, name in zip(got, want, ("ids", "d", "exp", "keep")):
+        if name == "d":
+            g_, w_ = g_.view(torch.int32), w_.view(torch.int32)
+        require(torch.equal(g_, w_), f"beam_merge {name} differs from the plain version ({what})")
+
+
+def hold_merge(args, n, visited, what: str):
+    """The committed B2 held bitwise against the plain version on all four
+    outputs and, with ``visited`` (the kept ids' bits cleared first, as the
+    scorer leaves them), the bitmap after the fused call against
+    ``ref.set_bits``'s. Returns the plain outputs, the kept ids' bits, the
+    bitmap given to the fused call, and the fused check as a function of
+    the build's name, for ``--form`` builds."""
+    want = ref.beam_merge_ref(*args, n=n)
+    same_merge(ops.beam_merge(*args, n=n), want, what)
+    kept = torch.zeros_like(visited)
+    ref.set_bits(kept, args[4], want[3], n)
+    vis = visited & ~kept                         # the kept ids unvisited
+    want_vis = vis.clone()
+    ref.set_bits(want_vis, args[4], want[3], n)
+
+    def fused_check(name):
+        got_vis = vis.clone()
+        same_merge(ops.beam_merge(*args, n=n, visited=got_vis), want, f"{what}, {name}, fused")
+        require(torch.equal(got_vis, want_vis), f"fused visited bits differ from set_bits ({what}, {name})")
+
+    fused_check("committed")
+    return want, kept, vis, fused_check
+
+
+def merge_case(args, n, visited, *, plain_reps: int = 5, **fields) -> dict:
+    """A B2 case: the committed kernel held as ``hold_merge`` does, then
+    timed without the bitmap (``ms``, ``queued_ms``) and with it
+    (``fused_queued_ms``), beside the plain version, each ``--form`` of
+    ``beam_merge.cu`` (held the same way) and the committed kernel once
+    more. ``visited_words``: the words the kept ids touch, counted in
+    ``fused_bound_ms``."""
+    B, L = args[0].shape
+    C = args[3].shape[1]
+    what = fields.get("case", "")
+    want, kept, vis, fused_check = hold_merge(args, n, visited, what)
+
+    def times():
+        scratch = vis.clone()
+        return {**kernel_times(lambda: ops.beam_merge(*args, n=n)),
+                "fused_queued_ms": queued_ms(lambda: ops.beam_merge(*args, n=n, visited=scratch))}
+
+    words = int((kept != 0).sum())
+    bnd = merge_bound(args, want[3])
+    fin = torch.isfinite(args[3]).sum(1).float()
+    case = {"kernel": "beam_merge", **fields, "B": B, "L": L, "C": C, "max_abs_err": 0.0,
+            "visited_equal": True,
+            "finite_per_row": {"median": fin.median().item(), "p99": fin.quantile(0.99).item(),
+                               "max": fin.max().item()},
+            "kept_per_row_mean": want[3].sum(1).float().mean().item(),
+            **times(), "plain_ms": time_ms(lambda: ref.beam_merge_ref(*args, n=n),
+                                           reps=plain_reps, warm=1),
+            **bnd, "visited_words": words,
+            "fused_bound_ms": merge_bound(args, want[3], words)["bound_ms"]}
+    if MERGE_FORMS:
+        case["forms"] = {}
+        for name, lib in MERGE_FORMS.items():
+            with b2_form(lib):
+                same_merge(ops.beam_merge(*args, n=n), want, f"{what}, {name}")
+                fused_check(name)
+                case["forms"][name] = times()
+        case["again"] = times()
+    case["fraction_of_bound"] = bnd["bound_ms"] / case["ms"]
+    case["queued_fraction_of_bound"] = bnd["bound_ms"] / case["queued_ms"]
+    case["fused_queued_fraction_of_bound"] = case["fused_bound_ms"] / case["fused_queued_ms"]
+    return case
+
+
+def merge_inputs(B, L, C, n, gen, cand=None) -> tuple:
+    """B2's inputs: a sorted random beam, its upper half +inf, row 2 empty;
+    ``cand`` (distances, ids) or random candidates, 70 % finite; then exact
+    ties and duplicate ids (rows 3-7: few distinct distances and ids), -0.0
+    against +0.0 (row 4), all-inf candidates (row 9), a -inf (row 10) and
+    the sentinel id n after an inf (row 11)."""
+    dev = gen.device
+    beam_d = torch.sort(torch.rand((B, L), generator=gen, device=dev) * 400, dim=1).values
+    beam_d[:, L // 2:] = float("inf")
+    beam_d[2] = float("inf")                          # an empty beam
+    beam_ids = torch.randint(0, n, (B, L), generator=gen, device=dev, dtype=torch.int32)
+    beam_ids[torch.isinf(beam_d)] = -1
+    beam_exp = torch.rand((B, L), generator=gen, device=dev) < 0.5
+    if cand is not None:
+        cand_d, cand_ids = cand[0].clone(), cand[1].clone()
+    else:
+        cand_d = torch.rand((B, C), generator=gen, device=dev) * 400
+        cand_ids = torch.randint(0, n, (B, C), generator=gen, device=dev, dtype=torch.int32)
+        cand_d[torch.rand((B, C), generator=gen, device=dev) < 0.3] = float("inf")
+    cand_d[3:8] = torch.randint(0, 4, (5, C), generator=gen, device=dev).float()
+    cand_ids[3:8] = torch.randint(0, 8, (5, C), generator=gen, device=dev, dtype=torch.int32)
+    beam_d[3:8] = torch.sort(torch.randint(0, 4, (5, L), generator=gen, device=dev).float(), 1).values
+    beam_d[4, 0] = -0.0                               # -0.0 ties +0.0
+    cand_d[4, :4] = torch.tensor([0.0, -0.0, 0.0, -0.0], device=dev)
+    cand_d[9] = float("inf")                          # all-inf candidates
+    cand_d[10, 5] = float("-inf")                     # -inf sorts by its key
+    cand_d[11, 2] = float("inf")                      # the sentinel id n after it
+    cand_d[11, 7], cand_ids[11, 7] = 1.0, n
+    return beam_d, beam_ids, beam_exp, cand_d, cand_ids
+
+
+def shuffle_beam(args, gen) -> tuple:
+    """The same inputs with each row's beam in a random order."""
+    B, L = args[0].shape
+    perm = torch.argsort(torch.rand((B, L), generator=gen, device=gen.device), dim=1)
+    return tuple(torch.gather(x, 1, perm) for x in args[:3]) + args[3:]
+
+
+# (B, L, C): one pair a lane (L <= 32), 8 a lane (L 129-256), 16 a lane
+# (L 257-512, the widest in registers) and wider than the registers (the
+# chunked selection: the wide search of a beam-300 batch, and three chunks)
+MERGE_WIDTHS = ((512, 7, 100), (512, 32, 720), (512, 200, 720), (512, 300, 600),
+                (256, 600, 1440), (64, 1100, 300))
+
+
+def merge_width_cases(n, visited) -> list:
+    """B2 at the beam widths that the paths' cases leave out, sorted and
+    shuffled, with the edge rows of ``merge_inputs``: held as
+    ``hold_merge`` does (bitwise, the fused bitmap too); not timed."""
+    gen = torch.Generator(device=visited.device).manual_seed(4)
+    cases = []
+    for B, L, C in MERGE_WIDTHS:
+        args = merge_inputs(B, L, C, n, gen)
+        for order, a in (("sorted", args), ("shuffled", shuffle_beam(args, gen))):
+            hold_merge(a, n, visited[:B], f"L {L}, C {C}, {order} beam")
+            cases.append({"kernel": "beam_merge (widths)", "B": B, "L": L, "C": C, "beam": order,
+                          "max_abs_err": 0.0, "visited_equal": True})
+    return cases
+
+
 def check_kernels(dg, q, states, ep) -> dict:
     """Every kernel against its plain version at the paths' shapes and on
     edge cases (the scorers B1, B3, B4 bitwise: their plain versions sum in
@@ -404,46 +640,21 @@ def check_kernels(dg, q, states, ep) -> dict:
             if M == 1:
                 cases.append(int32_case(dg, args, want, scales, cand, B))
 
-    # B2: beam merge, L = 64 against the scorer's output, L = 128 wide
+    # B2: beam merge, L = 64 against the scorer's output, L = 128 wide and
+    # dense, and the first case's beam out of order; then the other widths
     for L, C in ((BEAM, E), (2 * BEAM, 2 * E)):
-        beam_d = torch.sort(torch.rand((B, L), generator=gen, device=dev) * 400, dim=1).values
-        beam_d[:, L // 2:] = float("inf")
-        beam_d[2] = float("inf")                          # an empty beam
-        beam_ids = torch.randint(0, n, (B, L), generator=gen, device=dev, dtype=torch.int32)
-        beam_ids[torch.isinf(beam_d)] = -1
-        beam_exp = torch.rand((B, L), generator=gen, device=dev) < 0.5
-        if C == E:
-            cand_d, cand_ids = d_new.clone(), nb.clone()
-        else:
-            cand_d = torch.rand((B, C), generator=gen, device=dev) * 400
-            cand_ids = torch.randint(0, n, (B, C), generator=gen, device=dev, dtype=torch.int32)
-            cand_d[torch.rand((B, C), generator=gen, device=dev) < 0.3] = float("inf")
-        # exact ties and duplicate ids: few distinct distances and ids
-        cand_d[3:8] = torch.randint(0, 4, (5, C), generator=gen, device=dev).float()
-        cand_ids[3:8] = torch.randint(0, 8, (5, C), generator=gen, device=dev, dtype=torch.int32)
-        beam_d[3:8] = torch.sort(torch.randint(0, 4, (5, L), generator=gen, device=dev).float(), 1).values
-        beam_d[4, 0] = -0.0                               # -0.0 ties +0.0
-        cand_d[4, :4] = torch.tensor([0.0, -0.0, 0.0, -0.0], device=dev)
-        cand_d[9] = float("inf")                          # all-inf candidates
-        args = (beam_d, beam_ids, beam_exp, cand_d, cand_ids)
-        got = ops.beam_merge(*args, n=n)
-        want = ref.beam_merge_ref(*args, n=n)
-        for g_, w_, name in zip(got, want, ("ids", "d", "exp", "keep")):
-            if name == "d":
-                g_, w_ = g_.view(torch.int32), w_.view(torch.int32)
-            require(torch.equal(g_, w_), f"beam_merge {name} differs from the plain version (L={L})")
-        nbytes = B * (L * 9 + C * 8) + B * (L * 9 + C)
-        lg = max(1, int(np.ceil(np.log2(L + C))))
-        b_ms, b_by = bound(nbytes, B * (L + C) * lg, CMP_OPS_PER_S)
-        case = {
-            "kernel": "beam_merge", "B": B, "L": L, "C": C, "max_abs_err": 0.0,
-            **kernel_times(lambda: ops.beam_merge(*args, n=n)),
-            "plain_ms": time_ms(lambda: ref.beam_merge_ref(*args, n=n)),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
+        args = merge_inputs(B, L, C, n, gen, cand=(d_new, nb) if C == E else None)
+        case = merge_case(args, n, visited, case="dense wide" if C != E else "scorer output",
+                          inputs="sorted random beam, half +inf; " + (
+                              "B1's output on the entry nodes' neighbours" if C == E
+                              else "random candidates, 70 % finite")
+                          + "; ties, -0.0, all-inf, -inf and sentinel rows")
         cases.append(case)
         if L == BEAM:
             rows["beam_merge"] = case
+            cases.append(merge_case(shuffle_beam(args, gen), n, visited, case="unsorted beam",
+                                    inputs="the scorer-output case, each row's beam shuffled"))
+    cases += merge_width_cases(n, visited)
 
     # B3: the BRUTE_VALID scan: all-pass rectangles, empty bitmap, C = 256
     V = 256
@@ -680,33 +891,90 @@ def profile_batch(run, batch_ms: float, out: Path) -> dict:
             "top": [[name[:60], round(t, 3), c] for name, (t, c) in top[:12]]}
 
 
+def traced_split(by_name: dict) -> dict:
+    """Device time and launches of the scorers (``filter_dist_kernel``: B1,
+    B3), the merge (``beam_merge_kernel``: B2) and torch's scatter/gather
+    kernels (the bitmap update of an earlier-interface merge, ``_select``'s
+    scatter and the loop's gathers), each of those by name."""
+    out = {}
+    for key, part in (("scorer", "filter_dist_kernel"), ("merge", "beam_merge_kernel"),
+                      ("scatter_gather", "scatter_gather")):
+        hits = {k: v for k, v in by_name.items() if part in k}
+        out[f"{key}_device_ms"] = sum(t for t, _ in hits.values())
+        out[f"{key}_launches"] = sum(c for _, c in hits.values())
+        if key == "scatter_gather":
+            out["scatter_gather_by_name"] = {k[:160]: v for k, v in hits.items()}
+    return out
+
+
 def main_path_ab(run, want, rounds: int = 5) -> dict:
-    """The main path's batch with the committed scorers and with each
-    ``--form`` in their place, in turns (committed, form, form, committed,
-    ... ``rounds`` times a form), on one index in one process: the same ids
-    and distances bit for bit; each side's batch times and traced scorer
-    device time (``filter_dist_kernel``: B1 and B3)."""
-    committed = _build.library("filter_dist")
+    """The main path's batch with the committed kernels and with each
+    ``--form`` in place of its kernel, in turns (committed, form, form,
+    committed, ... ``rounds`` times a form), on one index in one process:
+    the same ids and distances bit for bit; each side's batch times and
+    traced device time by kernel (``traced_split``)."""
     res = {}
-    for form, lib in FORMS.items():
-        libs = {"committed": committed, form: lib}
-        lat = {name: [] for name in libs}
-        for name in ("committed", form, form, "committed") * rounds:
-            with _build.swapped("filter_dist", libs[name]):
-                t0 = time.perf_counter()
-                ids, d = run()
-                lat[name].append(time.perf_counter() - t0)
-            require(np.array_equal(ids, want[0]) and np.array_equal(d.view(np.int32), want[1].view(np.int32)),
-                    f"the main path with the {name} scorers gave other results")
-        res[form] = {}
-        for name, l in libs.items():
-            with _build.swapped("filter_dist", l):
-                scorer = [v for k, v in traced_ms(run).items() if "filter_dist_kernel" in k]
-            res[form][name] = {"qps": BATCH / statistics.median(lat[name]),
-                               "batch_ms": [t * 1e3 for t in lat[name]],
-                               "scorer_device_ms": sum(t for t, _ in scorer),
-                               "scorer_launches": sum(c for _, c in scorer)}
+    for kind, forms, swap in (("filter_dist", FORMS, lambda lib: _build.swapped("filter_dist", lib)),
+                              ("beam_merge", MERGE_FORMS, b2_form)):
+        for form, lib in forms.items():
+            libs = {"committed": _build.library(kind), form: lib}
+            lat = {name: [] for name in libs}
+            for name in ("committed", form, form, "committed") * rounds:
+                with swap(libs[name]):
+                    t0 = time.perf_counter()
+                    ids, d = run()
+                    lat[name].append(time.perf_counter() - t0)
+                require(np.array_equal(ids, want[0]) and np.array_equal(d.view(np.int32), want[1].view(np.int32)),
+                        f"the main path with the {name} {kind} build gave other results")
+            res[form] = {"kernel": kind}
+            for name, l in libs.items():
+                with swap(l):
+                    traced = traced_split(traced_ms(run))
+                res[form][name] = {"qps": BATCH / statistics.median(lat[name]),
+                                   "batch_ms": [t * 1e3 for t in lat[name]], **traced}
     return res
+
+
+CAPTURE_ITERS = (1, 8, 32)
+
+
+def merge_captures(run, n: int) -> dict:
+    """B2 on the loop's own inputs: the auto batch (outside the counted main
+    path) run twice with ``ops.beam_merge`` recorded, once to count the
+    merges of each search and once to copy the (beam, candidates, bitmap)
+    of iterations 1, 8, 32 and the last of the graph search (L 64, C 720)
+    and of the wide search (L 128, C 1440); each copy is held bitwise and
+    timed as ``merge_case`` does, with its finite candidates per row
+    (median, p99, max). Also B2's launches of the batch split by search."""
+    merge = ops.beam_merge
+    calls, last, caps = {}, {}, {}
+
+    def record(*args, n, visited=None):
+        L = args[0].shape[1]
+        i = calls[L] = calls.get(L, 0) + 1
+        if last and (i in CAPTURE_ITERS or i == last[L]):
+            caps[(L, i)] = tuple(x.clone() for x in (*args, visited))
+        return merge(*args, n=n, visited=visited)
+
+    ops.beam_merge = record
+    try:
+        run()
+        last.update(calls)
+        calls.clear()
+        run()
+    finally:
+        ops.beam_merge = merge
+    names = {BEAM: "graph", 2 * BEAM: "wide"}
+    require(set(calls) == set(names), f"merges of beam widths {sorted(calls)}, expected {sorted(names)}")
+    require(calls == last, f"the batch merged {last} times, then {calls}")
+    cases = []
+    for (L, i), snap in sorted(caps.items()):
+        label = f"{names[L]} iteration {i}" + (" (the last)" if i == last[L] else "")
+        cases.append(merge_case(snap[:5], n, snap[5], case=label, plain_reps=3,
+                                inputs=f"captured from the auto batch's {names[L]} search"))
+    del caps
+    return {"launches": {names[L]: c for L, c in calls.items()}, "iterations": CAPTURE_ITERS,
+            "cases": cases}
 
 
 def make_queries(n_q, s, t, sels, seed):
@@ -883,9 +1151,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one auto batch with torch.profiler")
     ap.add_argument("--form", action="append", default=[], metavar="NAME=SOURCE",
-                    help="another source of filter_dist.cu to build, hold and time beside "
-                         "the committed one on B1's and B3's inputs and on the main path; "
-                         "repeatable")
+                    help="another source of filter_dist.cu or beam_merge.cu to build, hold "
+                         "and time beside the committed one on its kernel's inputs and on the "
+                         "main path; repeatable")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -913,7 +1181,7 @@ def main(argv=None) -> int:
             "filter_dist.cu's kMaxTile is not ops.SCORER_MAX_TILE")
     build_forms(args.form, out)
     emit({"build": {"nvcc_s": round(build_s, 2), "sources": sorted(_build.ARGTYPES),
-                    "forms": sorted(FORMS)}})
+                    "forms": sorted(FORMS), "merge_forms": sorted(MERGE_FORMS)}})
 
     # 3. index: the wave constructor (batched=None at this n), searches on the card
     n = args.n
@@ -1007,7 +1275,16 @@ def main(argv=None) -> int:
         emit({"profile": profile_batch(
             lambda: execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto"),
             statistics.median(timed) * 1e3, out)})
-    if FORMS:
+    merges = merge_captures(lambda: execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto"),
+                            dg.device().table.shape[0])
+    RECORD["kernel_cases"] += merges["cases"]
+    emit({"beam_merge_loop": {
+        "launches": merges["launches"],
+        "cases": [{k: c.get(k) for k in ("case", "L", "C", "finite_per_row", "kept_per_row_mean",
+                                         "ms", "queued_ms", "fused_queued_ms", "bound_ms",
+                                         "fused_bound_ms", "forms", "again")}
+                  for c in merges["cases"]]}})
+    if FORMS or MERGE_FORMS:
         emit({"main_path_ab": main_path_ab(
             lambda: execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto"), (ids, d))})
 
@@ -1035,6 +1312,21 @@ def main(argv=None) -> int:
         "ids_equal": bool(np.array_equal(ids_c, ids_g)),
         "max_abs_err": float(np.max(np.abs(np.where(np.isfinite(d_c), d_c - d_g, 0.0)))),
     }})
+    # a beam wider than B2's registers hold (the wide search at 2 x 300)
+    sub = slice(0, WIDE_BEAM_QUERIES)
+    merges = ops.LAUNCHES["beam_merge"]
+    t0 = time.perf_counter()
+    ids_g, d_g = execute_batch(dg, qv[sub], s_q[sub], t_q[sub], k=K, beam=WIDE_BEAM)
+    card_s = time.perf_counter() - t0
+    merges = ops.LAUNCHES["beam_merge"] - merges
+    t0 = time.perf_counter()
+    ids_c, d_c = execute_batch(dg, qv[sub], s_q[sub], t_q[sub], k=K, beam=WIDE_BEAM, device="cpu")
+    bad = mismatches(ids_c, d_c, ids_g, d_g)
+    require(not bad, f"card vs CPU at beam {WIDE_BEAM}: {bad[:5]}")
+    emit({"wide_beam_parity": {
+        "queries": WIDE_BEAM_QUERIES, "beam": WIDE_BEAM, "b2_launches": merges,
+        "card_s": round(card_s, 2), "cpu_s": round(time.perf_counter() - t0, 2),
+        "ids_equal": bool(np.array_equal(ids_c, ids_g))}})
 
     # kernel -> (source, the TPU kernel's pallas_call, the path its launches count on)
     replaces = {

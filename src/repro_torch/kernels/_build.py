@@ -44,7 +44,7 @@ ARGTYPES = {
     },
     "beam_merge": {
         "beam_merge": [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P,
         ],
     },
 }

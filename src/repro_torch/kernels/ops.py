@@ -219,18 +219,27 @@ def beam_merge(
     cand_ids: torch.Tensor,   # [B, C] int32
     *,
     n: int,
+    visited: torch.Tensor | None = None,   # [B, ceil(n/32)] int32 bitmap
 ):
     """Deduplicating top-L beam merge — ``(new_ids, new_d, new_exp, keep)``,
-    bitwise equal to the stable-sort oracle ``ref.beam_merge_ref``."""
-    if not _on_cuda(beam_d, beam_ids, beam_exp, cand_d, cand_ids):
-        return ref.beam_merge_ref(beam_d, beam_ids, beam_exp, cand_d, cand_ids, n=n)
+    bitwise equal to the stable-sort oracle ``ref.beam_merge_ref`` for any
+    beam. With ``visited``, the kept candidates' bits
+    are set in it in place, in the same launch (``ref.set_bits``: kept ids
+    are distinct and were unvisited, so the kernel's or is the reference's
+    add)."""
+    if not _on_cuda(beam_d, beam_ids, beam_exp, cand_d, cand_ids, visited):
+        return ref.beam_merge_ref(beam_d, beam_ids, beam_exp, cand_d, cand_ids,
+                                  n=n, visited=visited)
     B, L = beam_d.shape
     C = cand_d.shape[1]
+    W = (n + 31) // 32
     _check(beam_d, "beam_d", torch.float32, (B, L))
     _check(beam_ids, "beam_ids", torch.int32, (B, L))
     _check(beam_exp, "beam_exp", torch.bool, (B, L))
     _check(cand_d, "cand_d", torch.float32, (B, C))
     _check(cand_ids, "cand_ids", torch.int32, (B, C))
+    if visited is not None:
+        _check(visited, "visited", torch.int32, (B, W))
     dev = beam_d.device
     new_ids = torch.empty((B, L), dtype=torch.int32, device=dev)
     new_d = torch.empty((B, L), dtype=torch.float32, device=dev)
@@ -238,8 +247,8 @@ def beam_merge(
     keep = torch.empty((B, C), dtype=torch.bool, device=dev)
     rc = _build.library("beam_merge").beam_merge(
         _ptr(beam_d), _ptr(beam_ids), _ptr(beam_exp), _ptr(cand_d),
-        _ptr(cand_ids), B, L, C, int(n), _ptr(new_ids), _ptr(new_d),
-        _ptr(new_exp), _ptr(keep), _stream(beam_d),
+        _ptr(cand_ids), B, L, C, int(n), _ptr(visited), W, _ptr(new_ids),
+        _ptr(new_d), _ptr(new_exp), _ptr(keep), _stream(beam_d),
     )
     _raise_on(rc, "beam_merge")
     LAUNCHES["beam_merge"] += 1

@@ -204,11 +204,13 @@ def beam_merge_ref(
     cand_ids: torch.Tensor,   # [B, C] int32
     *,
     n: int,
+    visited: torch.Tensor | None = None,   # [B, ceil(n/32)] int32 bitmap
 ):
     """Stable-sort top-L merge: suppress every candidate whose id appeared
     on an earlier finite candidate, then stable-sort ``[beam, candidates]``
     by distance and keep the best L — ties resolve by concat position.
-    Returns ``(new_ids, new_d, new_exp, keep)``."""
+    Returns ``(new_ids, new_d, new_exp, keep)``; with ``visited``, then sets
+    the kept candidates' bits in it in place (:func:`set_bits`)."""
     L = beam_d.shape[1]
     dup = dedup_mask(cand_d, cand_ids, n)
     d_dd = torch.where(dup, torch.full_like(cand_d, INF), cand_d)
@@ -219,12 +221,25 @@ def beam_merge_ref(
     # sort on d + 0.0 (-0.0 -> +0.0, as the reference's comparator does),
     # carry the original values
     order = torch.sort(all_d + 0.0, dim=1, stable=True).indices[:, :L]
+    if visited is not None:
+        set_bits(visited, cand_ids, keep, n)
     return (
         torch.gather(all_ids, 1, order),
         torch.gather(all_d, 1, order),
         torch.gather(all_exp, 1, order),
         keep,
     )
+
+
+def set_bits(visited, ids, keep, n):
+    """Set the bits of the kept ids (clipped to ``[0, n)``) in the int32
+    visited bitmap ``[B, ceil(n/32)]``, in place, by a scatter-add, as the
+    reference's bitmap update (``search/batched.py:236-243``). Kept ids are
+    deduped and unvisited, so each bit lands at most once and the add is an
+    or, in any order; ``1 << 31`` wraps to the right int32 bit pattern."""
+    ids_safe = ids.clamp(0, n - 1).long()
+    bits = torch.where(keep, 1 << (ids_safe & 31), 0).to(torch.int32)
+    visited.scatter_add_(1, ids_safe >> 5, bits)
 
 
 def quantize_int8(v: torch.Tensor):

@@ -13,17 +13,16 @@ branches, chosen by the label layout and ``fused``, as the reference's
   3. score them with the packed-label kernel (``ops.filter_dist_gather_packed``):
      label rows read in-kernel, dominance + visited tests, cached-norm
      distance ``‖c‖² − 2·q·c + ‖q‖²``, +inf where masked;
-  4. dedup + top-L merge with ``ops.beam_merge``;
-  5. set the kept candidates' bits in the ``[B, ceil(n/32)]`` int32 visited
-     bitmap with ``scatter_add_`` (kept candidates are deduped and
-     unvisited, so each bit lands at most once: an add of distinct bits is
-     an or, in any order, and ``1 << 31`` wraps to the right int32 bit
-     pattern).
+  4. dedup + top-L merge with ``ops.beam_merge``, which also sets the kept
+     candidates' bits in the ``[B, ceil(n/32)]`` int32 visited bitmap (the
+     reference's scatter-add, ``ref.set_bits``; kept candidates are deduped
+     and unvisited, so each bit lands at most once and the add is an or).
 * int32 ``[n, E, 4]`` labels, fused (``batched.py:251-295``), or no labels
   at all (the constructor's broad search, all-zero rectangles and state):
   steps 1-2, then the expanded nodes' rectangles are gathered here and the
   gather scorer (``ops.filter_dist_gather``) scores; dedup by a stable
-  argsort of the id key; the bitmap update; a stable merge on distance.
+  argsort of the id key; the bitmap update (``ref.set_bits``); a stable
+  merge on distance.
 * ``fused=False`` (``batched.py:297-350``, int32 labels, M = 1): a dense
   ``[B, n]`` visited table, the candidate rows pre-gathered into
   ``[B, E, D]`` here, the dense scorer (``ops.filter_dist``, norms
@@ -54,7 +53,7 @@ import torch
 from repro_torch.core.predicates import get_relation
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import warp_dot
+from repro_torch.kernels.ref import set_bits, warp_dot
 from repro_torch.search.device_graph import DeviceGraph
 
 INF = float("inf")
@@ -108,14 +107,6 @@ def _select(beam_ids, beam_d, beam_exp, M):
     cur_safe = torch.where(live, cur, 0)
     beam_exp = beam_exp.scatter(1, j, torch.gather(beam_exp, 1, j) | live)
     return live, cur_safe, beam_exp
-
-
-def _set_bits(visited, ids, keep, n):
-    """Set the bits of the kept ids in the int32 visited bitmap. Kept ids
-    are deduped and unvisited, so a scatter-add of distinct bits is an or."""
-    ids_safe = ids.clamp(0, n - 1).long()
-    bits = torch.where(keep, 1 << (ids_safe & 31), 0).to(torch.int32)
-    visited.scatter_add_(1, ids_safe >> 5, bits)
 
 
 def _dedup(nb, d_new, n):
@@ -214,10 +205,9 @@ def search_core(
             table, labels, norms, q, cur_safe, nb, states, visited,
             scales=scales,
         )
-        # dedup + top-L merge; keep = deduped survivors in nb order
-        beam_ids, beam_d, beam_exp, keep = ops.beam_merge(
-            beam_d, beam_ids, beam_exp, d_new, nb, n=n)
-        _set_bits(visited, nb, keep, n)
+        # dedup + top-L merge, the kept candidates' bits set in the same call
+        beam_ids, beam_d, beam_exp, _ = ops.beam_merge(
+            beam_d, beam_ids, beam_exp, d_new, nb, n=n, visited=visited)
         return beam_ids, beam_d, beam_exp, visited
 
     def int32_body(beam_ids, beam_d, beam_exp, visited):
@@ -227,7 +217,7 @@ def search_core(
         d_new = ops.filter_dist_gather(
             table, norms, q, nb, lb, states, visited, scales=scales)
         ids_s, d_s, keep = _dedup(nb, d_new, n)
-        _set_bits(visited, ids_s, keep, n)
+        set_bits(visited, ids_s, keep, n)
         beam_ids, beam_d, beam_exp = _merge(
             beam_ids, beam_d, beam_exp, ids_s, d_s, keep, L)
         return beam_ids, beam_d, beam_exp, visited
