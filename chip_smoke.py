@@ -30,13 +30,19 @@ kernel launch counts to 0 just before it and reads them just after:
    the bitmap after the call held against ``ref.set_bits``), on the
    scorer's output (L 64, C 720), with that beam shuffled, and on a dense
    wide merge (L 128, C 1440); untimed at L 7, 32, 200, 300, 600 and 1100
-   (each of the kernel's instances, and its chunked selection). ``--form`` builds other sources of
+   (each of the kernel's instances, and its chunked selection). B3 also at
+   the streaming delta scan's shape (the batch against n/8 delta slots, the
+   broadcast rectangles materialized), beside its re-read floor.
+   ``--form`` builds other sources of
    ``filter_dist.cu`` or ``beam_merge.cu`` and holds and times them on the
    same inputs beside the committed one;
 6. main path: ``execute_batch(plan="auto")`` over 4096-query batches with
    selectivities that give every plan rows, plus one ``plan="brute"`` batch;
    B1-B3 must have launched there; QPS, latency, plan mix, recall@10
-   against exact ground truth. Then, outside the counted run, B2 on the
+   against exact ground truth. Then, outside the counted run, the auto
+   batch with ``stats=True`` (``main_path_stats``: the same results,
+   launches and host syncs; per plan the share of rows cut by the iteration
+   cap; the batch time with the counters on over off), B2 on the
    loop's own inputs (``beam_merge_loop``: iterations 1, 8, 32 and the last
    of the graph and the wide search, bitwise, timed, with B2's launches by
    search) and, with ``--form``, the same batch in turns with the
@@ -54,7 +60,15 @@ kernel launch counts to 0 just before it and reads them just after:
 10. parity: 128 of the main path's queries on the CPU (plain versions) and on
     the card, held equal under the tie rule of ``repro_torch.data.parity``;
     then 8 of them at beam 300, whose wide search (L 600) takes B2's chunked
-    selection.
+    selection;
+11. streaming (``stream_phase``): a ``StreamingIndex`` at the shard's shape
+    (node capacity n, delta capacity n/8) loaded with 7n/16 objects through
+    ``insert`` (a compaction each time the delta fills), snapshotted, then
+    n/32 inserts and 1 % deletes through a ``WriteAheadLog(sync="always")``;
+    4096 queries with ``plan`` auto, graph and wide (B1-B3 must launch on
+    each), the acknowledged inserts read back, no deleted id returned,
+    ``recover`` bit-equal, card against CPU, ``fused=False`` (B4), and an
+    epoch swap built on a thread while batches are served.
 
 Prints one JSON object per line; the line before the last is the kernel
 table and the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -69,6 +83,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1144,6 +1159,368 @@ def distance_matrix_path(dg, qv, s_q, t_q, vecs, s, t, gt_ids) -> dict:
     return launches
 
 
+def delta_scan_case(q, s_q, t_q, C: int) -> dict:
+    """B3 at the streaming delta scan's shape (``stream/search.py``): the
+    batch's queries against a delta segment of ``C`` objects
+    (``make_dataset(C, DIM, seed=3)``, every 97th slot dead), their
+    key-space rectangles broadcast to ``[B, C, 4]`` and materialized, slot
+    ids as the candidates, an empty ``[B, ceil(C/32)]`` bitmap, the delta
+    norms summed as the export's (``delta_norms``). Held bitwise against
+    ``ref.filter_dist_gather_ref`` (run over 128 queries at a time: its
+    ``[B, C, D]`` gather would not fit), timed beside its bound, the
+    re-read floor and the materialization of the broadcast."""
+    from repro_torch.stream import DeltaBuffer, query_key_state
+    from repro_torch.core.predicates import get_relation
+    from repro_torch.stream.search import delta_norms
+
+    dev = q.device
+    B, D = q.shape
+    rel = get_relation(CONFIG.relation)
+    vecs, s, t = make_dataset(C, D, seed=3)
+    buf = DeltaBuffer(D, C, rel)
+    for i in range(C):
+        buf.append(vecs[i], s[i], t[i], i)
+    for i in range(0, C, 97):
+        buf.tombstone(i)
+    seg = buf.device_segment()
+    dvec = torch.as_tensor(seg.vectors, device=dev)
+    dlab = torch.as_tensor(seg.labels, device=dev)
+    dids = torch.as_tensor(seg.slot_ids, device=dev)
+    dstate = torch.as_tensor(query_key_state(rel, s_q, t_q), device=dev)
+    dn = delta_norms(dvec)
+    lab = dlab[None].expand(B, C, 4).contiguous()
+    slot = dids[None].expand(B, C).contiguous()
+    vis = torch.zeros((B, (C + 31) // 32), dtype=torch.int32, device=dev)
+    args = (dvec, dn, q, slot, lab, dstate, vis)
+
+    def plain():
+        return torch.cat([ref.filter_dist_gather_ref(dvec, dn, q[i:i + 128], slot[i:i + 128],
+                                                     lab[i:i + 128], dstate[i:i + 128],
+                                                     vis[i:i + 128])
+                          for i in range(0, B, 128)])
+
+    got = ops.filter_dist_gather(*args)
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = bitwise(got, want, "filter_dist_gather (delta scan)")
+    fin = torch.isfinite(want)
+    case = {
+        "kernel": "filter_dist_gather (delta scan)", "table": "f32", "B": B, "C": C, "D": D,
+        "max_abs_err": err, "passing_share": float(fin.float().mean()),
+        "tile": ops.scorer_tile(B, C, ops._sm_count(dev)),
+        "inputs": f"make_dataset({C}, {D}, seed=3) as the delta, every 97th slot dead; the "
+                  "main batch's queries and key states; broadcast rectangles materialized",
+        **kernel_times(lambda: ops.filter_dist_gather(*args)), "plain_ms": plain_ms,
+        # the function reads each slot's rectangle once: C distinct labels
+        **scorer_bound(want, want, slot, slot.long(), D=D, elt=4, scaled=False,
+                       label_bytes=16, per_query=D * 4 + 8),
+        "every_pair_floor_ms": (B * C * (D * 4 + 4) + B * C * 8) / HBM_BYTES_PER_S * 1e3,
+        "materialized_bytes": lab.numel() * 4 + slot.numel() * 4,
+        "materialize_ms": time_ms(lambda: (dlab[None].expand(B, C, 4).contiguous(),
+                                           dids[None].expand(B, C).contiguous())),
+    }
+    case["fraction_of_bound"] = case["bound_ms"] / case["ms"]
+    case["queued_fraction_of_bound"] = case["bound_ms"] / case["queued_ms"]
+    del lab, slot, got, want
+    return case
+
+
+def main_path_stats(dg, qv, s_q, t_q, launches, loop, want, batches: int) -> dict:
+    """The auto batch with ``stats=True``, outside the counted run: the same
+    results bit for bit; the same kernel launches and host syncs as with the
+    counters off, and with them off the counted run's launches per
+    iteration; per plan the share of rows cut by the iteration cap
+    (``hit_max_iters``) and the mean iterations and valid candidates; the
+    batch wall time with the counters on over off, three batches each in
+    turns."""
+    runs = {}
+    for stats in (False, True):
+        reset_counts()
+        out = execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto", return_plans=True,
+                            stats=stats)
+        runs[stats] = (out, dict(ops.LAUNCHES), dict(search_mod.LOOP_STATS))
+    (off, l_off, loop_off), (on, l_on, loop_on) = runs[False], runs[True]
+    for name, res in (("off", off), ("on", on)):
+        require(np.array_equal(res[0], want[0]) and
+                np.array_equal(res[1].view(np.int32), want[1].view(np.int32)),
+                f"the auto batch with stats {name} gave other results")
+    require(l_on == l_off and loop_on == loop_off,
+            f"stats on changed launches or syncs: {l_on} {loop_on} vs {l_off} {loop_off}")
+    per_iter = {k: launches[k] / loop["iterations"] for k in ("filter_dist_gather_packed", "beam_merge")}
+    per_iter_off = {k: l_off[k] / loop_off["iterations"] for k in per_iter}
+    require(per_iter_off == per_iter, f"launches per iteration {per_iter_off}, counted {per_iter}")
+    lat = {False: [], True: []}
+    for stats in (False, True, True, False) * 2:
+        t0 = time.perf_counter()
+        execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="auto", stats=stats)
+        lat[stats].append(time.perf_counter() - t0)
+    pb, st = on[2], on[3]
+    by_plan = {}
+    for p, name in PLAN_NAMES.items():
+        rows = pb.plans == p
+        if rows.any():
+            by_plan[name] = {"rows": int(rows.sum()),
+                             "hit_max_iters_share": float(st.hit_max_iters[rows].mean()),
+                             "iters_mean": float(st.iters[rows].mean()),
+                             "cand_valid_mean": float(st.cand_valid[rows].mean()),
+                             "kept_mean": float(st.kept[rows].mean()),
+                             "visited_mean": float(st.visited[rows].mean())}
+    return {"batch": len(qv), "by_plan": by_plan,
+            "iters_mean": float(st.iters.mean()), "cand_valid_mean": float(st.cand_valid.mean()),
+            "hit_max_iters_share": float(st.hit_max_iters.mean()),
+            "launches_per_iteration_off": per_iter_off, "launches_per_iteration_counted": per_iter,
+            "counted_batches": batches, "loop_syncs_off": loop_off["syncs"],
+            "loop_syncs_on": loop_on["syncs"],
+            "batch_ms_off": [x * 1e3 for x in lat[False]], "batch_ms_on": [x * 1e3 for x in lat[True]],
+            "on_off_ratio": statistics.median(lat[True]) / statistics.median(lat[False])}
+
+
+STREAM_KERNELS = ("filter_dist_gather_packed", "beam_merge", "filter_dist_gather")
+
+
+def stream_phase(n: int, work: Path) -> dict:
+    """The streaming index (``repro_torch.stream``) at the serving shard's
+    shape, on the card; returns the kernel launches of its searches by
+    search. Sizes scale with ``n`` (65536: node capacity 65536, delta
+    capacity 8192, 28672 objects loaded, 2048 mutations logged):
+
+    1. construct with the shard's capacities and build settings;
+    2. load through ``insert_batch``: each full delta forces a compaction
+       (at 8192, 16384 and 24576 objects), each reported;
+    3. a snapshot, then a ``WriteAheadLog(sync="always")``: 2048 inserts and
+       deletes of 1 % of the live objects, over both tiers, each
+       acknowledged after its fsync;
+    4. 4096 queries at the main path's selectivities with ``plan`` auto,
+       graph and wide: B1, B2 and B3 launch on each; QPS, latency, plan
+       mix, recall@10 against exact ground truth over the live set, mean
+       ``delta_valid``, device bytes;
+    5. guarantees: 256 acknowledged inserts, each queried by its own vector
+       and interval, come back first at distance 0; no deleted id in any
+       result of the phase;
+    6. ``recover`` into a new index on the card: the same batch's ids and
+       distances bit for bit;
+    7. 64 queries on the CPU (plain versions) against the card;
+    8. ``fused=False`` on 128 queries: B4 launches; ids equal the fused
+       path's under the tie rule;
+    9. an epoch swap: ``build_epoch`` on a thread while auto batches are
+       served (the pre-swap results, bit for bit), then the swap: the delta
+       drained, the tombstones cleared, every device shape and each kernel
+       library unchanged, recall over the new live set."""
+    import shutil
+    import threading
+
+    from repro_torch.core.predicates import get_relation
+    from repro_torch.exec.plan import plan_queries
+    from repro_torch.search.batched import prepare_states_extended as prep
+    from repro_torch.stream import StreamingIndex, WriteAheadLog, recover
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    scale = n / FULL_N
+    ncap, dcap = n, n // 8
+    n_load, n_mut = (7 * n) // 16, n // 32
+    res = {"node_capacity": ncap, "delta_capacity": dcap, "edge_capacity": 768,
+           "loaded": n_load, "logged_inserts": n_mut}
+    reports, deleted, seen = [], set(), []
+    kw = dict(node_capacity=ncap, delta_capacity=dcap, edge_capacity=768, M=16, Z=128, K_p=8)
+    idx = StreamingIndex(DIM, CONFIG.relation, on_epoch_swap=reports.append, **kw)
+    dev = idx.device
+
+    # 2. load
+    vecs, s, t = make_dataset(n_load, DIM, seed=1)
+    t0 = time.perf_counter()
+    idx.insert_batch(vecs, s, t)
+    res["load_s"] = time.perf_counter() - t0
+    res["compactions"] = [dataclasses.asdict(r) for r in reports]
+    require(len(reports) == n_load // dcap - (n_load % dcap == 0),
+            f"{len(reports)} compactions while loading")
+    res["graph_max_labeled_degree"] = int((idx._dg.nbr >= 0).sum(axis=1).max())
+
+    # 3. snapshot, then logged mutations
+    t0 = time.perf_counter()
+    snap = idx.save_snapshot(str(work))
+    res["snapshot_s"], res["snapshot_bytes"] = time.perf_counter() - t0, os.path.getsize(snap)
+    wal = WriteAheadLog(str(work), sync="always")
+    idx.attach_wal(wal)
+    mv, ms_, mt = make_dataset(n_mut, DIM, seed=2)
+    t0 = time.perf_counter()
+    acked = idx.insert_batch(mv, ms_, mt)
+    res["inserts_per_s"] = n_mut / (time.perf_counter() - t0)
+    rng = np.random.default_rng(4)
+    live_ids = idx.live_ids()
+    victims = rng.choice(live_ids, len(live_ids) // 100, replace=False)
+    keep_acked = np.setdiff1d(acked, victims)
+    t0 = time.perf_counter()
+    for e in victims:
+        require(idx.delete(int(e)), f"delete of live id {e} refused")
+    res["deletes_per_s"] = len(victims) / (time.perf_counter() - t0)
+    deleted.update(int(e) for e in victims)
+    in_graph = int(np.isin(victims, idx._graph_ext[:idx._graph_n]).sum())
+    res.update(deletes=len(victims), deletes_in_graph=in_graph, deletes_in_delta=len(victims) - in_graph,
+               wal_sync="always", live=idx.live_count, graph_n=idx._graph_n,
+               delta_live=idx._delta.live_count)
+    require(0 < in_graph < len(victims), "the deletes did not reach both tiers")
+
+    # 4. searches
+    lv, ls, lt, lext = idx.snapshot_live()
+    qv, s_q, t_q = make_queries(BATCH, ls, lt, SELECTIVITIES, 11)
+    n_gt = min(1024, BATCH)
+    qs = ground_truth(QuerySet(CONFIG.relation, qv[:n_gt], s_q[:n_gt], t_q[:n_gt], 0.0,
+                               np.zeros(n_gt), K), lv, ls, lt)
+    qs.gt_ids = np.where(qs.gt_ids >= 0, lext[np.maximum(qs.gt_ids, 0)], -1)
+    states, _, invalid = prep(idx._dg, s_q, t_q)
+    res["plan_mix"] = plan_queries(idx._dg.planner, states, invalid,
+                                   config=default_planner_config()).mix()
+    launches, searches = {}, {}
+    for plan in ("auto", "graph", "wide"):
+        reset_counts()
+        lat = []
+        for _ in range(1 + 3):
+            t0 = time.perf_counter()
+            ids, d = idx.search(qv, s_q, t_q, k=K, beam=BEAM, plan=plan)
+            lat.append(time.perf_counter() - t0)
+        launches[plan] = dict(ops.LAUNCHES)
+        for name in STREAM_KERNELS:
+            require(launches[plan][name] > 0, f"{name} never launched on the streaming {plan} search")
+        require(ids.shape == (BATCH, K) and np.all(np.isfinite(d)), f"streaming {plan} result")
+        seen.append(ids)
+        searches[plan] = {"qps": BATCH / statistics.median(lat[1:]),
+                          "p50_batch_ms": float(np.percentile(lat[1:], 50) * 1e3),
+                          "p99_batch_ms": float(np.percentile(lat[1:], 99) * 1e3),
+                          "warmup_batch_ms": lat[0] * 1e3, "recall_at_10": recall_at_k(ids[:n_gt], qs),
+                          "launches": launches[plan], "loop_iterations": search_mod.LOOP_STATS["iterations"]}
+        if plan == "auto":
+            want = (ids, d)
+    res["searches"] = searches
+    by_name = traced_ms(lambda: idx.search(qv, s_q, t_q, k=K, beam=BEAM, plan="auto"))
+    busy = sum(t for t, _ in by_name.values())
+    res["auto_profile"] = {
+        "device_busy_ms": busy, "idle_share": 1.0 - busy / searches["auto"]["p50_batch_ms"],
+        "top": [[k[:60], round(t, 3), c] for k, (t, c) in
+                sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]]}
+    *_, st = idx.search(qv, s_q, t_q, k=K, beam=BEAM, plan="auto", return_stats=True)
+    res["delta_valid_mean"] = float(st.delta_valid.mean())
+    res["hit_max_iters_share"] = float(st.hit_max_iters.mean())
+    di = idx._dg.device(dev)
+    mut = idx._device_mutables(dev)
+    res["device_bytes"] = {
+        "graph_tier": sum(v.numel() * v.element_size() for v in vars(di).values() if v is not None),
+        "delta": sum(v.numel() * v.element_size() for v in mut[2:]),
+        "live_and_ext": sum(v.numel() * v.element_size() for v in mut[:2]),
+        "materialized_labels": BATCH * dcap * 16, "materialized_slots": BATCH * dcap * 4}
+
+    # 5. guarantees
+    g = min(256, len(keep_acked))
+    pick = rng.choice(keep_acked, g, replace=False)
+    rows = pick - acked[0]
+    ids, d = idx.search(mv[rows], ms_[rows], mt[rows], k=K, beam=BEAM, plan="auto")
+    seen.append(ids)
+    require(np.array_equal(ids[:, 0], pick) and np.all(d[:, 0] == 0.0),
+            "an acknowledged insert did not come back first at distance 0")
+    res["acked_read_back"] = g
+
+    # 6. recovery
+    wal.close()
+    idx.attach_wal(None)
+    t0 = time.perf_counter()
+    rec, rep = recover(str(work), dim=DIM, relation=CONFIG.relation, device="cuda", **kw)
+    torch.cuda.synchronize()
+    res["recovery_s"] = time.perf_counter() - t0
+    got = rec.search(qv, s_q, t_q, k=K, beam=BEAM, plan="auto")
+    require(np.array_equal(got[0], want[0]) and
+            np.array_equal(got[1].view(np.int32), want[1].view(np.int32)),
+            "the recovered index's results differ from the live index's")
+    res["recovery"] = {"records_replayed": rep.records_replayed, "snapshot_found": rep.snapshot_found,
+                       "truncated": rep.truncated, "live_count": rep.live_count, "bit_equal": True}
+    rec._wal.close()
+    del rec
+
+    # 7. card against CPU
+    sub = slice(0, 64)
+    t0 = time.perf_counter()
+    ids_c, d_c = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM, plan="auto", device="cpu")
+    res["cpu_s"] = time.perf_counter() - t0
+    ids_g, d_g = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM, plan="auto")
+    bad = mismatches(ids_c, d_c, ids_g, d_g)
+    require(not bad, f"streaming card vs CPU: {bad[:5]}")
+    res["cpu_parity"] = {"queries": 64, "ids_equal": bool(np.array_equal(ids_c, ids_g))}
+    idx._dg._cache.pop(("device", "cpu"), None)
+    idx._dev_mut.pop("cpu", None)
+
+    # 8. unfused baseline
+    sub = slice(0, 128)
+    reset_counts()
+    t0 = time.perf_counter()
+    un = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM, plan="graph", fused=False)
+    res["unfused_batch_ms"] = (time.perf_counter() - t0) * 1e3
+    launches["unfused"] = dict(ops.LAUNCHES)
+    require(launches["unfused"]["filter_dist"] > 0, "B4 never launched on the streaming unfused search")
+    fu = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM, plan="graph")
+    bad = mismatches(*fu, *un)
+    require(not bad, f"streaming unfused vs fused: {bad[:5]}")
+    seen += [un[0], fu[0]]
+    res["unfused"] = {"queries": 128, "ids_equal": bool(np.array_equal(un[0], fu[0])),
+                      "launches": launches["unfused"]}
+
+    # 9. epoch swap while serving (outside any counted section)
+    shapes = {k: (tuple(v.shape), str(v.dtype)) for k, v in vars(idx._dg.device(dev)).items()
+              if v is not None}
+    libs = {k: id(v) for k, v in _build._libs.items()}
+    pre_epoch, pre_dead, pre_delta = idx.epoch, idx.graph_dead, idx._delta.live_count
+    job = idx.begin_compaction()
+    err: list = []
+
+    def build():
+        try:
+            idx.build_epoch(job)
+        except BaseException as exc:   # re-raised below
+            err.append(exc)
+
+    build_thread = threading.Thread(target=build)
+    t0 = time.perf_counter()
+    build_thread.start()
+    served = 0
+    while build_thread.is_alive() and served < 8:
+        ids, d = idx.search(qv, s_q, t_q, k=K, beam=BEAM, plan="auto")
+        require(np.array_equal(ids, want[0]) and np.array_equal(d.view(np.int32), want[1].view(np.int32)),
+                "a batch served during the rebuild differs from the pre-swap index's")
+        served += 1
+    build_thread.join()
+    require(not err, f"build_epoch failed: {err}")
+    swap = idx.finish_compaction(job)
+    res["epoch_swap"] = {**dataclasses.asdict(swap), "wall_s": time.perf_counter() - t0,
+                         "batches_served_during_build": served}
+    require(idx.epoch == pre_epoch + 1 and idx._delta.live_count == 0 and idx.graph_dead == 0,
+            "the swap left delta objects or tombstones")
+    require(swap.delta_drained == pre_delta and swap.tombstones_cleared == pre_dead, "swap report")
+    require({k: (tuple(v.shape), str(v.dtype)) for k, v in vars(idx._dg.device(dev)).items()
+             if v is not None} == shapes, "the epoch swap changed a device shape")
+    require({k: id(v) for k, v in _build._libs.items()} == libs, "a kernel library was rebuilt")
+    lv2, ls2, lt2, lext2 = idx.snapshot_live()
+    qs2 = ground_truth(QuerySet(CONFIG.relation, qv[:n_gt], s_q[:n_gt], t_q[:n_gt], 0.0,
+                                np.zeros(n_gt), K), lv2, ls2, lt2)
+    qs2.gt_ids = np.where(qs2.gt_ids >= 0, lext2[np.maximum(qs2.gt_ids, 0)], -1)
+    ids, d = idx.search(qv, s_q, t_q, k=K, beam=BEAM, plan="auto")
+    seen.append(ids)
+    res["epoch_swap"]["recall_at_10"] = recall_at_k(ids[:n_gt], qs2)
+    res["epoch_swap"]["shapes_unchanged"] = True
+    for ids in seen:
+        require(not np.isin(ids, list(deleted)).any(), "a deleted id came back")
+    res["no_deleted_id"] = True
+    res["live_after_swap"] = idx.live_count
+    if n != FULL_N:
+        res["scale"] = scale
+    emit({"reduced": {"stream_live": [ncap, idx.live_count],
+                      "why": "the JAX package has no bulk load: loading through insert costs one "
+                             "rebuild per delta fill, and the full shard would take 7 rebuilds of "
+                             "up to 57344 nodes, beyond the run's time limit"}})
+    emit({"stream": res})
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=FULL_N, help="corpus size")
@@ -1222,6 +1599,12 @@ def main(argv=None) -> int:
     states, ep, _ = prepare_states_extended(dg, s_q, t_q)
     rows = check_kernels(dg, q_dev, torch.as_tensor(states, device="cuda"),
                          torch.as_tensor(ep, device="cuda"))
+    delta_case = delta_scan_case(q_dev, s_q, t_q, n // 8)
+    RECORD["kernel_cases"].append(delta_case)
+    emit({"delta_scan_kernel": {k: delta_case[k] for k in (
+        "B", "C", "D", "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by", "pair_floor_ms",
+        "every_pair_floor_ms", "passing_share", "materialized_bytes", "materialize_ms",
+        "max_abs_err")}})
 
     # 6. main path: counts to 0 just before, read just after
     reset_counts()
@@ -1270,6 +1653,8 @@ def main(argv=None) -> int:
         "loop_iterations": loop["iterations"],
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
     }})
+    emit({"main_path_stats": main_path_stats(dg, qv, s_q, t_q, launches, loop, (ids, d),
+                                             1 + TIMED_BATCHES)})
 
     if args.profile:
         emit({"profile": profile_batch(
@@ -1328,6 +1713,12 @@ def main(argv=None) -> int:
         "card_s": round(card_s, 2), "cpu_s": round(time.perf_counter() - t0, 2),
         "ids_equal": bool(np.array_equal(ids_c, ids_g))}})
 
+    # 11. streaming: the two-tier index, its WAL and recovery, at the shard's shape
+    t0 = time.perf_counter()
+    stream_launches = stream_phase(n, ROOT / "build" / "stream_work")
+    RECORD["stream_s"] = time.perf_counter() - t0
+    RECORD["launches_by_path"]["stream"] = stream_launches
+
     # kernel -> (source, the TPU kernel's pallas_call, the path its launches count on)
     replaces = {
         "filter_dist_gather_packed": ("src/repro_torch/kernels/csrc/filter_dist.cu",
@@ -1353,6 +1744,8 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "fraction_of_bound": r["bound_ms"] / r["ms"], "queued_ms": r["queued_ms"],
+            "stream_launches": (stream_launches["unfused"][name] if name == "filter_dist" else
+                                sum(stream_launches[p][name] for p in ("auto", "graph", "wide"))),
             "ok": True,
         })
     RECORD["seconds"] = time.perf_counter() - t_all

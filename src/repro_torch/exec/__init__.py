@@ -4,8 +4,8 @@ The planner picks a strategy per query (graph beam search, widened beam, or
 an exact brute scan of the enumerated valid subset) from an O(1) bounded
 count over dominance rank space; ``execute_batch`` runs mixed-plan batches.
 """
-from repro_torch.exec.bruteforce import brute_topk_impl, effective_norms
-from repro_torch.exec.estimator import SelectivityEstimator
+from repro_torch.exec.bruteforce import brute_force_topk, brute_topk_impl, effective_norms
+from repro_torch.exec.estimator import SelectivityEstimator, count_bounds_device
 from repro_torch.exec.plan import (
     PLAN_NAMES,
     PlanBatch,
@@ -28,7 +28,9 @@ __all__ = [
     "PlannerConfig",
     "QueryPlan",
     "SelectivityEstimator",
+    "brute_force_topk",
     "brute_topk_impl",
+    "count_bounds_device",
     "default_planner_config",
     "effective_norms",
     "execute_batch",

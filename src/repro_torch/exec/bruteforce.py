@@ -62,3 +62,9 @@ def brute_topk_impl(
     d, ids = torch.gather(d, 1, by_id), torch.gather(ids, 1, by_id)
     by_d = torch.sort(d + 0.0, dim=1, stable=True).indices[:, :k]
     return torch.gather(ids, 1, by_d), torch.gather(d, 1, by_d)
+
+
+def brute_force_topk(table, norms, q, bf_ids, *, k: int, scales=None):
+    """Standalone brute scan (the planned executor calls
+    :func:`brute_topk_impl` itself); the reference's jitted twin."""
+    return brute_topk_impl(table, norms, q, bf_ids, k=k, scales=scales)

@@ -26,12 +26,14 @@ ordered by y-rank (full buckets binary-search their prefix; only the one
 partial x-bucket is scanned), which doubles as the valid-id enumerator of
 the ``BRUTE_VALID`` execution path.
 
-The cumulative table is tiny (G^2 int64); host planning uses the
-vectorized ``count_bounds``. The exact-fallback CSR is the O(n) component —
-12 bytes/node of int32 host memory, rebuilt per epoch.
+The cumulative table is tiny (G^2 int64) and put on a device on demand
+(``device_tables`` + ``count_bounds_device``, the torch twin of
+``count_bounds`` for code that keeps the query states on the device); host
+planning uses the vectorized numpy ``count_bounds``. The exact-fallback CSR
+is the O(n) component — 12 bytes/node of int32 host memory, rebuilt per
+epoch.
 
-A host numpy copy of the JAX package's estimator. Its device twin
-(``device_tables`` / ``count_bounds_device``) is not ported yet (ROADMAP A).
+A host numpy copy of the JAX package's estimator, plus the device twin.
 ``STATE_FIELDS`` / ``from_state`` carry an estimator built elsewhere over
 unchanged, so both packages can plan over the same index.
 """
@@ -40,8 +42,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.predicates import rank_bucket_edges
+from repro_torch.device import resolve_device
 
 
 STATE_FIELDS = (
@@ -210,3 +214,37 @@ class SelectivityEstimator:
 
     def exact_count(self, a: int, c: int) -> int:
         return int(self.exact_valid_ids(a, c).shape[0])
+
+    # --- device residency -----------------------------------------------------
+
+    def device_tables(self, device=None) -> tuple:
+        """Memoized ``(cum, edges_x, edges_y)`` int64 tensors on ``device``
+        (``None`` = the card), for :func:`count_bounds_device`."""
+        dev = resolve_device(device)
+        cache = self.__dict__.setdefault("_dev", {})
+        key = str(dev)
+        if key not in cache:
+            cache[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(dev)
+                for x in (self.cum, self.edges_x, self.edges_y))
+        return cache[key]
+
+
+def count_bounds_device(cum, edges_x, edges_y, a, c):
+    """Torch twin of ``SelectivityEstimator.count_bounds``: ``(lo, hi)``
+    int64 with the same values, on the tables' device. ``cum`` /
+    ``edges_x`` / ``edges_y`` come from ``device_tables()``; ``a`` / ``c``
+    are integer rank thresholds (tensors or arrays)."""
+    gx = cum.shape[0] - 1
+    gy = cum.shape[1] - 1
+    a = torch.as_tensor(a, device=cum.device).long()
+    c = torch.as_tensor(c, device=cum.device).long()
+    i_hi = (torch.searchsorted(edges_x, a, side="right") - 1).clamp(0, gx)
+    j_hi = torch.searchsorted(edges_y, c + 1, side="left").clamp(0, gy)
+    i_hi = torch.where(a >= edges_x[-1], gx, i_hi)
+    j_hi = torch.where(c < 0, 0, j_hi)
+    hi = cum[i_hi, j_hi]
+    i_lo = torch.searchsorted(edges_x, a, side="left").clamp(0, gx)
+    j_lo = (torch.searchsorted(edges_y, c + 1, side="right") - 1).clamp(0, gy)
+    lo = cum[i_lo, j_lo]
+    return lo, hi

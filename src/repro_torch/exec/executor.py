@@ -22,8 +22,11 @@ The planner's estimator is built here, not in the search layer:
 ``export_planned_graph`` and ``planned_graph_from_numpy`` are the search
 layer's exports with the estimator attached.
 
-Not ported yet (ROADMAP A): ``stats=True`` and the segmented tier's
-``worklist_exec_core``.
+``stats=True`` merges the two graph searches' ``SearchStats`` by
+``combine_stats``: each sees the rows planned elsewhere as masked (ep = -1,
+zero work, exact-zero counters), and BRUTE_VALID rows stay all-zero.
+
+Not ported yet (ROADMAP A10): the segmented tier's ``worklist_exec_core``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from repro_torch.exec.plan import (
     default_planner_config,
     plan_queries,
 )
+from repro_torch.obs.stats import combine_stats, stats_to_host
 from repro_torch.search.batched import LOOP_BLOCK, prepare_states_extended, search_core
 from repro_torch.search.device_graph import device_graph_from_numpy, export_device_graph
 
@@ -85,24 +89,29 @@ def planned_exec_core(
     scales: torch.Tensor | None = None,
     fused: bool = True,
     block: int = LOOP_BLOCK,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """All three strategies over the batch + per-row plan select."""
-    ids_g, d_g = search_core(
+    stats: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """All three strategies over the batch + per-row plan select; with
+    ``stats`` the merged ``SearchStats`` last."""
+    out_g = search_core(
         table, nbr, labels, q, states, ep_graph, k=k, beam=beam,
         max_iters=max_iters, expand=expand, norms=norms, scales=scales,
-        fused=fused, block=block,
+        fused=fused, block=block, stats=stats,
     )
-    ids_w, d_w = search_core(
+    out_w = search_core(
         table, nbr, labels, q, states, ep_wide, k=k, beam=wide_beam,
         max_iters=wide_max_iters, expand=wide_expand, norms=norms,
-        scales=scales, fused=fused, block=block,
+        scales=scales, fused=fused, block=block, stats=stats,
     )
+    (ids_g, d_g), (ids_w, d_w) = out_g[:2], out_w[:2]
     nrm = effective_norms(table, scales, norms)
     ids_b, d_b = brute_topk_impl(table, nrm, q, bf_ids, k=k, scales=scales)
     sel = plans[:, None]
     graph, wide = sel == int(QueryPlan.GRAPH), sel == int(QueryPlan.GRAPH_WIDE)
     ids = torch.where(graph, ids_g, torch.where(wide, ids_w, ids_b))
     d = torch.where(graph, d_g, torch.where(wide, d_w, d_b))
+    if stats:
+        return ids, d, combine_stats(out_g[2], out_w[2])
     return ids, d
 
 
@@ -132,6 +141,8 @@ def execute_batch(
     plan: str = "auto",
     config: Optional[PlannerConfig] = None,
     return_plans: bool = False,
+    packed: bool | None = None,
+    stats: bool = False,
     row_mask: Optional[np.ndarray] = None,
     device=None,
     block: int = LOOP_BLOCK,
@@ -147,7 +158,9 @@ def execute_batch(
     ``False`` row is treated as invalid and returns ``ids=-1 / d=+inf`` at
     no traversal cost. Returns numpy ``(ids [B, k], dists [B, k])``, plus the
     ``PlanBatch`` when ``return_plans`` is set (``None`` for the non-auto
-    modes)."""
+    modes), plus a host ``SearchStats`` when ``stats`` is set (always last).
+    ``packed`` picks the graph strategies' label layout as in
+    ``batched_udg_search`` (``DeviceGraph.serving_labels``)."""
     if plan not in PLANS:
         raise ValueError(f"plan={plan!r} not in {PLANS}")
     dev = resolve_device(device)
@@ -192,21 +205,24 @@ def execute_batch(
     wide_beam = max(beam * config.wide_beam_scale, beam)
     wide_expand = config.wide_expand if fused else 1
     mi = max_iters if max_iters is not None else 2 * beam
-    labels = dg.serving_labels(fused=fused, device=dev)
+    labels = dg.serving_labels(fused=fused, packed=packed, device=dev)
     di = dg.device(dev)
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
-    ids, d = planned_exec_core(
+    out = planned_exec_core(
         di.table, di.nbr, labels, put(np.asarray(q, dtype=np.float32)),
         put(states), put(ep_graph), put(ep_wide), put(bf_ids), put(plans),
         k=k, beam=beam, wide_beam=wide_beam,
         max_iters=mi, wide_max_iters=mi * config.wide_beam_scale,
         expand=expand, wide_expand=min(wide_expand, wide_beam),
         norms=di.norms, scales=di.scales, fused=fused, block=block,
+        stats=stats,
     )
-    ret = (ids.cpu().numpy(), d.cpu().numpy())
+    ret = (out[0].cpu().numpy(), out[1].cpu().numpy())
     if return_plans:
         ret += (pb,)
+    if stats:
+        ret += (stats_to_host(out[2]),)
     return ret

@@ -20,10 +20,8 @@ bound, so a query is only sent to ``BRUTE_VALID`` when its valid set
 provably fits the brute path's static id capacity. Default thresholds live
 in ``repro_torch.configs.udg_serve.UdgServeConfig`` (``planner_config()``).
 
-A host numpy copy of the JAX package's planner. The metrics recording of
-``plan_queries`` (route counts, bound width and slack histograms) waits for
-the port of ``obs/metrics`` (ROADMAP A7); the returned ``PlanBatch`` is the
-same.
+A host numpy copy of the JAX package's planner, its metrics recording
+(route counts, bound width and slack histograms) included.
 """
 from __future__ import annotations
 
@@ -34,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from repro_torch.exec.estimator import SelectivityEstimator
+from repro_torch.obs.metrics import COUNT_BUCKETS, get_registry
 
 
 class QueryPlan(enum.IntEnum):
@@ -120,7 +119,7 @@ def plan_queries(
     if est is None:
         plans[invalid] = int(QueryPlan.BRUTE_VALID)
         zeros = np.zeros(B, dtype=np.int64)
-        return PlanBatch(plans, bf_ids, zeros, zeros)
+        return _record_plan_batch(PlanBatch(plans, bf_ids, zeros, zeros))
     a = states[:, 0].astype(np.int64)
     c = states[:, 1].astype(np.int64)
     lo, hi = est.count_bounds(a, c)
@@ -137,5 +136,38 @@ def plan_queries(
     ):
         ids = est.exact_valid_ids(int(a[i]), int(c[i]))
         bf_ids[i, : ids.shape[0]] = ids  # |ids| <= hi <= brute_max_valid
-    return PlanBatch(plans, bf_ids, lo, hi)
+    return _record_plan_batch(PlanBatch(plans, bf_ids, lo, hi))
 
+
+def _record_plan_batch(pb: PlanBatch) -> PlanBatch:
+    """Fold one planning result into the metrics registry: per-strategy
+    route counts, count-bound width, and — on the brute rows, where the
+    exact valid count is known — the observed slack of each bound."""
+    reg = get_registry()
+    routes = reg.counter(
+        "repro_planner_routes_total", "queries routed per execution strategy"
+    )
+    for name, cnt in pb.mix().items():
+        if cnt:
+            routes.inc(cnt, plan=name)
+    width = reg.histogram(
+        "repro_planner_bound_width",
+        "estimator count-bound width (hi - lo) per query",
+        buckets=COUNT_BUCKETS,
+    )
+    width.observe_many((float(x) for x in pb.count_hi - pb.count_lo))
+    brute = pb.plans == int(QueryPlan.BRUTE_VALID)
+    if np.any(brute):
+        actual = np.count_nonzero(pb.bf_ids[brute] >= 0, axis=1)
+        slack = reg.histogram(
+            "repro_planner_bound_slack",
+            "bound minus exact valid count on brute-planned rows",
+            buckets=COUNT_BUCKETS,
+        )
+        slack.observe_many(
+            (float(x) for x in pb.count_hi[brute] - actual), bound="hi"
+        )
+        slack.observe_many(
+            (float(x) for x in actual - pb.count_lo[brute]), bound="lo"
+        )
+    return pb

@@ -1,6 +1,7 @@
 """Batched UDG search on torch tensors — the serving path."""
 from repro_torch.search.device_graph import (
     BroadExport,
+    DeltaSegment,
     DeviceGraph,
     DeviceIndex,
     device_graph_from_numpy,
@@ -17,6 +18,7 @@ from repro_torch.search.batched import (
 
 __all__ = [
     "BroadExport",
+    "DeltaSegment",
     "DeviceGraph",
     "DeviceIndex",
     "batched_udg_search",

@@ -41,7 +41,12 @@ neighbor ids -1 → all-inf candidates → unchanged beam, no bitmap bits), so
 results do not depend on ``block``. ``LOOP_STATS`` counts the tests (host
 syncs) and iterations.
 
-Not ported yet (ROADMAP A5.1): ``stats=True``.
+``stats=True`` also returns a ``repro_torch.obs.SearchStats`` of traversal
+counters, tallied on the device from each iteration's live mask, candidate
+ids, scorer distances and the merge's keep mask (four reductions an
+iteration, no extra host sync; a no-op iteration adds zeros). With
+``stats=False`` the loop runs exactly the launches it runs without the
+counters.
 """
 from __future__ import annotations
 
@@ -54,6 +59,12 @@ from repro_torch.core.predicates import get_relation
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import set_bits, warp_dot
+from repro_torch.obs.stats import (
+    accumulate_iteration,
+    finalize_stats,
+    init_tally,
+    stats_to_host,
+)
 from repro_torch.search.device_graph import DeviceGraph
 
 INF = float("inf")
@@ -150,9 +161,11 @@ def search_core(
     scales: torch.Tensor | None = None,  # [n] f32: int8-quantized table
     fused: bool = True,
     block: int = LOOP_BLOCK,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    stats: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """The lockstep search loop on whatever device the tensors lie on.
-    Returns (ids [B, k] int32, squared distances [B, k] f32), ascending."""
+    Returns (ids [B, k] int32, squared distances [B, k] f32), ascending,
+    and with ``stats`` the ``SearchStats`` (on the same device)."""
     packed = labels is not None and labels.shape[-1] == 2
     if not fused and expand != 1:
         raise ValueError("multi-expand (expand > 1) requires fused=True")
@@ -206,9 +219,9 @@ def search_core(
             scales=scales,
         )
         # dedup + top-L merge, the kept candidates' bits set in the same call
-        beam_ids, beam_d, beam_exp, _ = ops.beam_merge(
+        beam_ids, beam_d, beam_exp, keep = ops.beam_merge(
             beam_d, beam_ids, beam_exp, d_new, nb, n=n, visited=visited)
-        return beam_ids, beam_d, beam_exp, visited
+        return beam_ids, beam_d, beam_exp, visited, (live, nb, d_new, keep)
 
     def int32_body(beam_ids, beam_d, beam_exp, visited):
         live, cur_safe, beam_exp = _select(beam_ids, beam_d, beam_exp, M)
@@ -220,7 +233,7 @@ def search_core(
         set_bits(visited, ids_s, keep, n)
         beam_ids, beam_d, beam_exp = _merge(
             beam_ids, beam_d, beam_exp, ids_s, d_s, keep, L)
-        return beam_ids, beam_d, beam_exp, visited
+        return beam_ids, beam_d, beam_exp, visited, (live, nb, d_new, keep)
 
     def unfused_body(beam_ids, beam_d, beam_exp, visited):
         live, cur_safe, beam_exp = _select(beam_ids, beam_d, beam_exp, 1)
@@ -239,19 +252,27 @@ def search_core(
                                 keep.to(torch.uint8), reduce="amax")
         beam_ids, beam_d, beam_exp = _merge(
             beam_ids, beam_d, beam_exp, ids_s, d_s, keep, L)
-        return beam_ids, beam_d, beam_exp, visited
+        return beam_ids, beam_d, beam_exp, visited, (live, nb, d_new, keep)
 
     body = unfused_body if not fused else packed_body if packed else int32_body
+    tally = init_tally(B, max_iters, dev) if stats else None
     it = 0
     while it < max_iters:
         LOOP_STATS["syncs"] += 1
         if not bool(torch.any(~beam_exp & torch.isfinite(beam_d))):
             break
         for _ in range(min(block, max_iters - it)):
-            beam_ids, beam_d, beam_exp, visited = body(
+            beam_ids, beam_d, beam_exp, visited, masks = body(
                 beam_ids, beam_d, beam_exp, visited)
+            if stats:
+                live, nb, d_new, keep = masks
+                accumulate_iteration(tally, live=live, nb=nb, d_new=d_new,
+                                     keep=keep, it=it)
             it += 1
     LOOP_STATS["iterations"] += it
+    if stats:
+        st = finalize_stats(tally, beam_d=beam_d, beam_exp=beam_exp, visited=visited)
+        return beam_ids[:, :k], beam_d[:, :k], st
     return beam_ids[:, :k], beam_d[:, :k]
 
 
@@ -267,37 +288,43 @@ def batched_udg_search(
     expand: int = 1,
     fused: bool = True,
     plan: str = "graph",
+    packed: bool | None = None,
+    stats: bool = False,
     device=None,
     block: int = LOOP_BLOCK,
-) -> Tuple[np.ndarray, np.ndarray]:
+) -> Tuple[np.ndarray, ...]:
     """End-to-end batched query: canonicalize on the host, search on
     ``device`` (``None`` = the card) over the graph's memoized device
-    bundle. The branch follows the export's label layout (packed words,
-    else int32 rectangles); ``fused=False`` runs the unfused branch.
+    bundle. ``packed`` picks the label layout (``DeviceGraph.serving_labels``:
+    ``None`` the packed words when exported, ``False`` the int32 rectangles,
+    ``True`` requires packed words); ``fused=False`` runs the unfused branch.
     ``plan="graph"`` is the pure beam search; ``"auto"`` / ``"wide"`` /
     ``"brute"`` route through ``repro_torch.exec.execute_batch``.
-    Returns numpy ``(ids [B, k], dists [B, k])``."""
+    Returns numpy ``(ids [B, k], dists [B, k])``, and with ``stats`` a host
+    ``SearchStats`` after them."""
     if plan != "graph":
         from repro_torch.exec.executor import execute_batch
 
         return execute_batch(
             dg, q, s_q, t_q, k=k, beam=beam, max_iters=max_iters,
-            expand=expand, fused=fused, plan=plan, device=device, block=block,
+            expand=expand, fused=fused, plan=plan, packed=packed, stats=stats,
+            device=device, block=block,
         )
     dev = resolve_device(device)
     states, ep = prepare_states(dg, s_q, t_q)
-    labels = dg.serving_labels(fused=fused, device=dev)
+    labels = dg.serving_labels(fused=fused, packed=packed, device=dev)
     di = dg.device(dev)
-    ids, d = search_core(
+    out = search_core(
         di.table, di.nbr, labels,
         torch.as_tensor(np.asarray(q, dtype=np.float32), device=dev),
         torch.as_tensor(states, device=dev), torch.as_tensor(ep, device=dev),
         k=k, beam=beam,
         max_iters=max_iters if max_iters is not None else 2 * beam,
         expand=expand, norms=di.norms, scales=di.scales, fused=fused,
-        block=block,
+        block=block, stats=stats,
     )
-    return ids.cpu().numpy(), d.cpu().numpy()
+    ret = (out[0].cpu().numpy(), out[1].cpu().numpy())
+    return ret + (stats_to_host(out[2]),) if stats else ret
 
 
 def broad_batched_search(

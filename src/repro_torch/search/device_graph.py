@@ -27,7 +27,9 @@ for ``fused=False``) the int32 ``[n, E, 4]`` rectangles.
 
 ``device_graph_from_numpy`` rebuilds a ``DeviceGraph`` from another
 export's arrays unchanged, so two implementations can search the same index.
-``BroadExport`` is the wave constructor's label-ignoring adjacency.
+``BroadExport`` is the wave constructor's label-ignoring adjacency, and
+``DeltaSegment`` the streaming index's fixed-capacity view of its delta
+tier (``repro_torch.stream``).
 """
 from __future__ import annotations
 
@@ -158,12 +160,25 @@ class DeviceGraph:
             )
         return out
 
-    def serving_labels(self, *, fused: bool = True, device=None) -> torch.Tensor:
-        """The device label view a search runs with: the packed words when
-        the export has them and the search is fused; otherwise the int32
-        ``[n, E, 4]`` rectangles (the only layout ``fused=False`` reads)."""
+    def serving_labels(self, *, fused: bool = True, packed: bool | None = None,
+                       device=None) -> torch.Tensor:
+        """The device label view a search runs with, one rule for every
+        entry point (as the reference's):
+
+        * ``packed=None``: the packed words whenever the export has them;
+        * ``packed=True``: require them (``ValueError`` on an int32 export,
+          whatever ``fused``);
+        * ``packed=False``: the int32 ``[n, E, 4]`` rectangles;
+        * ``fused=False``: always the int32 rectangles, the only layout the
+          unfused branch reads."""
+        if packed is None:
+            packed = self.plabels is not None
+        elif packed and self.plabels is None:
+            raise ValueError(
+                "packed=True but the export carries no packed labels (grid "
+                "beyond the 16-bit rank budget or packed_labels=False)")
         di = self.device(device)
-        if fused and di.packed:
+        if fused and packed:
             return di.labels
         return self.device_labels_i32(device) if di.packed else di.labels
 
@@ -416,3 +431,31 @@ class BroadExport:
     def view(self, width: int | None = None) -> np.ndarray:
         """``[n_pad, width]`` int32 neighbor table (-1 padded), no copy."""
         return self._nbr[:, : (width or self.export_width())]
+
+
+@dataclasses.dataclass
+class DeltaSegment:
+    """Fixed-capacity view of the streaming index's mutable delta tier.
+
+    ``labels`` rectangles are in monotone float-key space
+    (``repro_torch.stream.delta.sort_key``): slot i is active for the query
+    key state (a, c) iff ``l <= a <= r and b <= c <= e`` with ``(l, r, b,
+    e) = (INT32_MIN, key(X_i), key(Y_i), INT32_MAX)``, which is the
+    predicate ``X_i >= x_q and Y_i <= y_q`` of Eq. (1), tested by the same
+    gather scorer (B3) as graph-tier candidates. Dead and unwritten slots
+    have ``slot_ids = -1`` (masked by the scorer) and an empty rectangle.
+    """
+
+    vectors: np.ndarray    # [C, d] f32
+    labels: np.ndarray     # [C, 4] int32 key-space rectangles
+    slot_ids: np.ndarray   # [C] int32, slot index or -1 = dead
+    ext_ids: np.ndarray    # [C] int32 external ids (-1 = dead)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.vectors.shape[0])
+
+    def nbytes(self) -> int:
+        return sum(
+            a.nbytes for a in (self.vectors, self.labels, self.slot_ids, self.ext_ids)
+        )

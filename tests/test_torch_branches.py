@@ -8,8 +8,11 @@ under the tie rule of ``repro_torch.data.parity`` and recall@10 equal; the
 port's packed, int32 and unfused branches agree among themselves as the
 reference's do (``tests/test_packed_labels.py``); the broad label-ignoring
 search matches the reference's ``broad_batched_search`` over the same broad
-adjacency.
+adjacency; ``packed=False`` forces the int32 branch on a packed export, and
+``packed=True`` refuses an export without packed words, in both packages.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +22,13 @@ import repro.exec as jexec
 import repro.search as jsearch
 from repro.core.predicates import RELATIONS
 from repro_torch.data.parity import mismatches
-from repro_torch.exec import PlannerConfig, execute_batch
-from repro_torch.search import BroadExport, batched_udg_search, broad_batched_search
+from repro_torch.exec import PlannerConfig, brute_force_topk, execute_batch
+from repro_torch.search import (
+    BroadExport,
+    batched_udg_search,
+    broad_batched_search,
+    prepare_states,
+)
 from torch_cases import K, assert_same, build_case, int32_export
 
 
@@ -171,3 +179,80 @@ def test_broad_search_matches_jax(case, fused, expand):
     assert not mismatches(*want, *got)
     assert (got[0][-3:] == -1).all() and np.isinf(got[1][-3:]).all()
     assert (got[0][:-3] >= 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+@pytest.mark.parametrize("expand", [1, 2])
+def test_packed_false_forces_the_int32_branch(case, dtype, expand):
+    """``packed=False`` on the packed export runs the int32 fused branch:
+    what the reference's ``packed=False`` returns, and the int32 export's
+    results bit for bit."""
+    _, qs, _, exports = case
+    jdg, tdg = exports[dtype]
+    want = jsearch.batched_udg_search(
+        jdg, qs.vectors, qs.s_q, qs.t_q, k=K, expand=expand, use_ref=True, packed=False)
+    got = batched_udg_search(tdg, qs.vectors, qs.s_q, qs.t_q, k=K, expand=expand,
+                             packed=False, device="cpu")
+    assert_same(qs, want, got)
+    i32 = batched_udg_search(int32_export(jdg), qs.vectors, qs.s_q, qs.t_q, k=K,
+                             expand=expand, device="cpu")
+    np.testing.assert_array_equal(got[0], i32[0])
+    np.testing.assert_array_equal(got[1].view(np.int32), i32[1].view(np.int32))
+    assert tdg.serving_labels(packed=False, device="cpu").shape[-1] == 4
+
+
+@pytest.mark.parametrize("plan", ["auto", "graph", "wide", "brute"])
+def test_planned_packed_false_matches_jax(case, plan):
+    rel, qs, cfg, exports = case
+    jdg, tdg = exports["f32"]
+    want = jexec.execute_batch(
+        jdg, qs.vectors, qs.s_q, qs.t_q, k=K, plan=plan, packed=False,
+        config=jexec.PlannerConfig(**cfg), use_ref=True)
+    got = execute_batch(
+        tdg, qs.vectors, qs.s_q, qs.t_q, k=K, plan=plan, packed=False,
+        config=PlannerConfig(**cfg), device="cpu")
+    assert_same(qs, want, got)
+
+
+def test_packed_true_refuses_an_int32_export(case):
+    _, qs, cfg, exports = case
+    jdg, tdg = exports["f32"]
+    idg = int32_export(jdg)
+    for call in (
+        lambda: batched_udg_search(idg, qs.vectors, qs.s_q, qs.t_q, packed=True, device="cpu"),
+        lambda: execute_batch(idg, qs.vectors, qs.s_q, qs.t_q, packed=True,
+                              config=PlannerConfig(**cfg), device="cpu"),
+        lambda: idg.serving_labels(packed=True, fused=False, device="cpu"),
+    ):
+        with pytest.raises(ValueError, match="packed=True"):
+            call()
+    # as the reference refuses its own export with the labels unpacked
+    jidg = dataclasses.replace(jdg, labels=jsearch.unpack_labels(jdg.plabels),
+                               plabels=None, _cache=None)
+    with pytest.raises(ValueError, match="packed=True"):
+        jsearch.batched_udg_search(jidg, qs.vectors, qs.s_q, qs.t_q, packed=True,
+                                   use_ref=True)
+    # the packed export serves its words with packed=True
+    assert tdg.serving_labels(packed=True, device="cpu") is tdg.device("cpu").labels
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_brute_force_topk_matches_jax(case, dtype):
+    """The standalone brute scan over each query's exact valid set."""
+    _, qs, _, exports = case
+    jdg, tdg = exports[dtype]
+    est = tdg.planner
+    states, _ = prepare_states(tdg, qs.s_q, qs.t_q)
+    V = 64
+    bf = np.full((len(qs.vectors), V), -1, np.int32)
+    for i, (a, c) in enumerate(states):
+        ids = est.exact_valid_ids(int(a), int(c))[:V]
+        bf[i, :ids.shape[0]] = ids
+    di = tdg.device("cpu")
+    ids, d = brute_force_topk(di.table, di.norms, torch.from_numpy(qs.vectors),
+                              torch.from_numpy(bf), k=K, scales=di.scales)
+    jdi = jdg.device()
+    jids, jd = jexec.brute_force_topk(jdi.table, jdi.norms, jnp.asarray(qs.vectors),
+                                      jnp.asarray(bf), k=K, use_ref=True, scales=jdi.scales)
+    assert not mismatches(np.asarray(jids), np.asarray(jd), ids.numpy(), d.numpy())
+    assert (ids.numpy() >= 0).sum() > 0

@@ -28,8 +28,25 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
-    assert int(out[0]) >= 20                       # every submodule was imported
+    assert int(out[0]) >= 30                       # every submodule was imported
     assert len(out) == 1, f"loaded: {out[1]}"
+
+
+OBS_STREAM = """
+import sys
+import repro_torch.obs, repro_torch.stream
+from repro_torch.obs import SearchStats, record_search_stats, trace_span
+from repro_torch.stream import StreamingIndex, WriteAheadLog, recover
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(",".join(bad) or "none")
+"""
+
+
+def test_obs_and_stream_import_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", OBS_STREAM], env=env, capture_output=True,
+                         text=True, check=True).stdout.split()
+    assert out == ["none"], f"loaded: {out}"
 
 
 def test_default_device_is_the_card():
