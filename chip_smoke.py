@@ -68,7 +68,21 @@ kernel launch counts to 0 just before it and reads them just after:
     4096 queries with ``plan`` auto, graph and wide (B1-B3 must launch on
     each), the acknowledged inserts read back, no deleted id returned,
     ``recover`` bit-equal, card against CPU, ``fused=False`` (B4), and an
-    epoch swap built on a thread while batches are served.
+    epoch swap built on a thread while batches are served;
+12. serving (``serve_phase``): ``build_sharded_index`` with 4 round-robin
+    shards of the main path's corpus (the wave constructor on the card),
+    every kernel launch of one auto batch and of the unfused step held bitwise against its plain version (``held_launches``), then
+    the launcher's loop (``launch.serve.serve_requests``) over the main
+    path's queries with ``plan`` auto and graph and both merges (B1, B2 on
+    every batch, B3 on the auto ones; the merges equal; recall, QPS, plan
+    mix per shard), the unfused step (B4), the stats step against each
+    shard's counters, card against CPU, a one-rank NCCL process group
+    bit-equal to the single-process mesh; ``StreamingServer`` over the
+    streaming index (``bench_serving.py``'s 2x overload loop with its
+    gates, a background compaction while it serves); a two-shard
+    ``ShardedStreamingIndex`` (host merge against the stacked step, B3 on
+    the delta tier, its launches held as above, ``refresh_shard``
+    copy-on-write).
 
 Prints one JSON object per line; the line before the last is the kernel
 table and the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -103,7 +117,7 @@ from repro_torch.data.parity import mismatches  # noqa: E402
 from repro_torch.data.workloads import QuerySet, recall_at_k  # noqa: E402
 from repro_torch.core import EntryTable, build_udg  # noqa: E402
 from repro_torch.exec import execute_batch, export_planned_graph  # noqa: E402
-from repro_torch.exec.plan import PLAN_NAMES, default_planner_config  # noqa: E402
+from repro_torch.exec.plan import PLAN_NAMES, QueryPlan, default_planner_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.search import batched as search_mod  # noqa: E402
 from repro_torch.search import batched_udg_search  # noqa: E402
@@ -1280,10 +1294,11 @@ def main_path_stats(dg, qv, s_q, t_q, launches, loop, want, batches: int) -> dic
 STREAM_KERNELS = ("filter_dist_gather_packed", "beam_merge", "filter_dist_gather")
 
 
-def stream_phase(n: int, work: Path) -> dict:
+def stream_phase(n: int, work: Path) -> tuple:
     """The streaming index (``repro_torch.stream``) at the serving shard's
     shape, on the card; returns the kernel launches of its searches by
-    search. Sizes scale with ``n`` (65536: node capacity 65536, delta
+    search, the index after its epoch swap and the phase's queries (the
+    serving phase serves them through a ``StreamingServer``). Sizes scale with ``n`` (65536: node capacity 65536, delta
     capacity 8192, 28672 objects loaded, 2048 mutations logged):
 
     1. construct with the shard's capacities and build settings;
@@ -1518,6 +1533,498 @@ def stream_phase(n: int, work: Path) -> dict:
                              "up to 57344 nodes, beyond the run's time limit"}})
     emit({"stream": res})
     shutil.rmtree(work, ignore_errors=True)
+    return launches, idx, (qv, s_q, t_q)
+
+
+SERVE_SHARDS = 4              # the serving phase's round-robin shards
+SERVE_TIMED = 3               # timed batches per (plan, merge) after one warm-up
+SERVE_SUB = 1024              # queries of the unfused and stats steps
+SERVE_CPU_QUERIES = 64        # card against CPU
+OVERLOAD_ROUNDS = 8
+SHARDED_STREAM = dict(node_capacity=8192, delta_capacity=1024, edge_capacity=768, M=16, Z=128,
+                      K_p=8, build_kwargs=dict(batched=True))
+SHARDED_STREAM_LOAD = 3000    # objects a shard, whatever n: compactions at 1024 and 2048
+
+
+def shard_graph(idx, j):
+    """Shard ``j`` of a ``ShardedIndex`` as a ``DeviceGraph`` on the card (its
+    f32 grids widened to f64, so ``execute_batch`` snaps f32-valued queries
+    as the serving step does)."""
+    from repro_torch.search.device_graph import device_graph_from_numpy
+
+    kx, ky = int(np.isfinite(idx.U_X[j]).sum()), int(idx.num_y[j])
+    packed = idx.labels.dtype == np.uint32
+    arrays = {"vectors": idx.vectors[j], "nbr": idx.nbr[j], "norms": idx.norms[j],
+              "plabels": idx.labels[j] if packed else None,
+              "labels": None if packed else idx.labels[j],
+              "U_X": idx.U_X[j, :kx].astype(np.float64), "U_Y": idx.U_Y[j, :ky].astype(np.float64),
+              "entry_node": idx.entry_node[j, :kx], "entry_y_rank": idx.entry_y_rank[j, :kx],
+              "relation": idx.relation}
+    return device_graph_from_numpy(arrays, planner=idx.planners[j], device="cuda")
+
+
+@contextlib.contextmanager
+def held_launches(what: str, cases: list):
+    """Every launch of B1-B4 inside the block held bitwise against its plain
+    version on the same inputs (copied before the launch, since B2 sets the
+    visited bits in place): all four outputs of B2 and the bitmap after it.
+    Appends one case per (kernel, shape, tile) to ``cases``, with the
+    launches held. The kernels are launched through the committed wrappers,
+    so the launch counts see them; a held run is never a counted one."""
+    wrapped = {name: getattr(ops, name) for name in
+               ("filter_dist_gather_packed", "filter_dist_gather", "filter_dist", "beam_merge")}
+    seen: dict = {}
+
+    def note(kernel, shape, tile=None):
+        key = (kernel, shape, tile)
+        seen[key] = seen.get(key, 0) + 1
+
+    def packed(*args, scales=None):
+        out = wrapped["filter_dist_gather_packed"](*args, scales=scales)
+        bitwise(out, ref.filter_dist_gather_packed_ref(*args, scales), f"filter_dist_gather_packed ({what})")
+        B, C = args[5].shape
+        note("filter_dist_gather_packed", (B, C), ops.scorer_tile(B, C, ops._sm_count(out.device)))
+        return out
+
+    def gather(*args, scales=None):
+        out = wrapped["filter_dist_gather"](*args, scales=scales)
+        bitwise(out, ref.filter_dist_gather_ref(*args, scales), f"filter_dist_gather ({what})")
+        B, C = args[3].shape
+        note("filter_dist_gather", (B, C), ops.scorer_tile(B, C, ops._sm_count(out.device)))
+        return out
+
+    def dense(*args):
+        out = wrapped["filter_dist"](*args)
+        bitwise(out, ref.filter_dist_ref(*args), f"filter_dist ({what})")
+        note("filter_dist", tuple(args[1].shape))
+        return out
+
+    def merge(*args, n, visited=None):
+        want_vis = None if visited is None else visited.clone()
+        want = ref.beam_merge_ref(*args, n=n, visited=want_vis)
+        got = wrapped["beam_merge"](*args, n=n, visited=visited)
+        same_merge(got, want, what)
+        require(visited is None or torch.equal(visited, want_vis),
+                f"beam_merge visited bits differ from the plain version ({what})")
+        note("beam_merge", (args[0].shape[0], args[0].shape[1], args[3].shape[1]))
+        return got
+
+    for name, fn in (("filter_dist_gather_packed", packed), ("filter_dist_gather", gather),
+                     ("filter_dist", dense), ("beam_merge", merge)):
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
+    for (kernel, shape, tile), count in sorted(seen.items()):
+        dims = dict(zip(("B", "L", "C") if kernel == "beam_merge" else
+                        ("B", "E", "D") if kernel == "filter_dist" else ("B", "C"), shape))
+        cases.append({"kernel": f"{kernel} ({what})", **dims, **({"tile": tile} if tile else {}),
+                      "launches_held": count, "max_abs_err": 0.0})
+
+
+def overload(idx, qv, s_q, t_q, srv_cls, adm_mod) -> dict:
+    """``bench_serving.py``'s 2x overload loop at batch 4096 over ``idx``:
+    every degradation rung searched first, a calibration, then
+    ``OVERLOAD_ROUNDS`` rounds that each offer two batches and serve one
+    through an ``AdmissionController(max_queue=4·batch)``, gated on
+    ``shed > 0``, the queue bound and the admitted p99 within the deadline.
+
+    The deadline is the bench's: 10x the calibrated step of an ``auto``
+    server (its last batch, timed alone). Each calibration round is also
+    timed whole (a batch's submits and its step), and a ``graph`` server,
+    the overload rung, is calibrated beside it; those times are reported."""
+    n_q = len(qv)
+    degraded = dataclasses.replace(default_planner_config(), wide_max_fraction=0.0)
+    rungs = {}
+    for name, kw in (("auto", dict(plan="auto")), ("no_wide", dict(plan="auto", planner_config=degraded)),
+                     ("graph", dict(plan="graph"))):
+        t0 = time.perf_counter()
+        idx.search(qv[:BATCH], s_q[:BATCH], t_q[:BATCH], k=K, beam=BEAM, **kw)
+        rungs[name] = (time.perf_counter() - t0) * 1e3
+    round_s, step_s = {}, {}
+    for plan in ("auto", "graph"):
+        cal = srv_cls(idx, batch_size=BATCH, k=K, beam=BEAM, timeout_s=0.0, plan=plan)
+        round_s[plan], step_s[plan] = [], []
+        for r in range(2):
+            t0 = time.monotonic()
+            for i in range(BATCH):
+                cal.submit(qv[i % n_q], s_q[i % n_q], t_q[i % n_q])
+            t1 = time.monotonic()
+            ans = cal.step(force=True)
+            round_s[plan].append(time.monotonic() - t0)
+            step_s[plan].append(time.monotonic() - t1)
+            if r == 0:      # one full batch answers as index.search does, bit for bit
+                want = idx.search(qv[:BATCH], s_q[:BATCH], t_q[:BATCH], k=K, beam=BEAM, plan=plan)
+                got_i = np.stack([ans[i][0] for i in range(BATCH)])
+                got_d = np.stack([ans[i][1] for i in range(BATCH)])
+                require(np.array_equal(got_i, want[0]) and
+                        np.array_equal(got_d.view(np.int32), want[1].view(np.int32)),
+                        f"the server's answers to a full {plan} batch differ from index.search")
+    res = {"rung_batch_ms": rungs, "calibration_round_s": round_s, "calibration_step_s": step_s,
+           "submit_us": (round_s["auto"][-1] - step_s["auto"][-1]) / BATCH * 1e6}
+
+    batch_s = step_s["auto"][-1]
+    max_queue = 4 * BATCH
+    deadline_s = max(0.1, 10.0 * batch_s)
+    adm = adm_mod.AdmissionController(
+        adm_mod.AdmissionConfig(max_queue=max_queue, default_deadline_s=deadline_s,
+                                min_batches_for_prediction=1), batch_size=BATCH)
+    srv = srv_cls(idx, batch_size=BATCH, k=K, beam=BEAM, timeout_s=0.0, admission=adm)
+    adm.observe_batch(batch_s)
+    offered = shed = max_depth = 0
+    answered, submit_times, j = {}, {}, 0
+    submits_s, steps_s = [], []
+    t_all = time.monotonic()
+    r = 0
+    while r < OVERLOAD_ROUNDS or srv.batcher.pending:      # the rounds, then the tail
+        t0 = time.monotonic()
+        if r < OVERLOAD_ROUNDS:
+            for _ in range(2 * BATCH):
+                offered += 1
+                try:
+                    rid = srv.submit(qv[j % n_q], s_q[j % n_q], t_q[j % n_q])
+                    submit_times[rid] = time.monotonic()
+                except adm_mod.RequestShed:
+                    shed += 1
+                j += 1
+            max_depth = max(max_depth, srv.batcher.pending)
+        r += 1
+        t1 = time.monotonic()
+        out = srv.step(force=True)
+        now = time.monotonic()
+        submits_s.append(t1 - t0)
+        steps_s.append(now - t1)
+        for rid in out:
+            answered[rid] = now - submit_times.pop(rid)
+    lats = np.sort(np.fromiter(answered.values(), float))
+    rec = {"offered": offered, "admitted": adm.admitted, "answered": len(answered), "shed": shed,
+           "expired_in_queue": len(submit_times), "deadline_s": deadline_s,
+           "batch_service_s": batch_s, "max_queue": max_queue, "max_observed_depth": max_depth,
+           "admitted_p50_s": float(np.percentile(lats, 50)),
+           "admitted_p99_s": float(np.percentile(lats, 99)),
+           "round_submits_s": submits_s[:OVERLOAD_ROUNDS], "steps_s": steps_s,
+           "wall_s": time.monotonic() - t_all}
+    require(shed > 0, f"2x overload must shed: {rec}")
+    require(max_depth <= max_queue, f"queue bound violated: {rec}")
+    require(rec["admitted_p99_s"] <= deadline_s, f"admitted p99 blew the deadline: {rec}")
+    res["overload_2x"] = rec
+    return res
+
+
+def serve_phase(n: int, vecs, s, t, qv, s_q, t_q, gt_auto, stream_idx, stream_q, out: Path) -> dict:
+    """The serving layer (``repro_torch.serve``) on the card; returns the
+    kernel launches of each counted run. Sizes scale with ``n``:
+
+    1. ``build_sharded_index``: ``SERVE_SHARDS`` round-robin shards of the
+       main path's corpus (16384 rows each at n = 65536), the wave
+       constructor on the card with M 16, Z 128, K_p 8, padded to the
+       shard's own size (``CONFIG.build_kwargs(pad_nodes=n // 4)``);
+    2. every launch of B1-B3 in one auto batch, and of B4 in the unfused
+       step, held bitwise against the plain version on its inputs
+       (``held_launches``: the kernels at the shapes and tiles the shards
+       give them, outside the counted runs); then the launcher's own loop (``launch.serve.serve_requests``: the
+       request batcher, then ``serve_batch``) over the main path's 4096
+       queries with ``plan`` auto and graph and both merges: B1 and B2 on
+       every batch, B3 on the auto batches (the planner plans BRUTE_VALID
+       inside shards; where it plans none, the lowest selectivity is lowered
+       until it does); the two merges equal under the tie rule; recall@10,
+       QPS, p50 and p99, the plan mix per shard; ``fused=False`` (B4) equal
+       to the fused step; the stats step's counters equal to the sum of each
+       shard's ``execute_batch(stats=True)``;
+    3. ``SERVE_CPU_QUERIES`` queries on the CPU mesh (plain versions) against
+       the card;
+    4. a one-rank NCCL process group on the card (a FileStore under
+       ``out``): bit-equal to the single-process mesh;
+    5. ``StreamingServer`` over the streaming phase's index: the overload
+       loop (``overload``), then one ``maybe_compact_async`` swap while the
+       server steps;
+    6. ``ShardedStreamingIndex`` of 2 shards (node 8192, delta 1024, 3000
+       objects a shard, at any n): ``search`` and ``serve_streaming_batch`` equal under
+       the tie rule, B1-B3 launched by the stacked step and each launch of
+       one stacked step held as in 2, ``refresh_shard``
+       after a per-shard compaction keeps the old dict."""
+    import torch.distributed as dist
+
+    from repro_torch.core.predicates import get_relation
+    from repro_torch.distributed import make_host_mesh, make_process_mesh
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.serve import (
+        RequestBatcher,
+        ShardedIndex,
+        ShardedStreamingIndex,
+        StreamingServer,
+        build_sharded_index,
+        make_serving_step,
+        make_streaming_serving_step,
+        plan_sharded_batch,
+        serve_batch,
+        serve_streaming_batch,
+    )
+    from repro_torch.serve import admission as adm_mod
+    from repro_torch.serve.distributed import STACK_FIELDS
+    from repro_torch.stream import CompactionPolicy
+
+    S = SERVE_SHARDS
+    rel = get_relation(CONFIG.relation)
+    launches, res = {}, {}
+
+    # 1. the sharded index
+    t0 = time.perf_counter()
+    idx = build_sharded_index(vecs, s, t, CONFIG.relation, S, M=16, Z=128, K_p=8,
+                              build_kwargs=CONFIG.build_kwargs(pad_nodes=n // S), device="cuda")
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    mesh = make_host_mesh(S, device="cuda")
+    dev = idx.device(mesh.device)
+    res.update(shards=S, rows_per_shard=idx.n_local, E=int(idx.nbr.shape[2]),
+               labels=str(idx.labels.dtype),
+               device_bytes=sum(v.numel() * v.element_size() for v in dev.values()),
+               device_bytes_per_shard=sum(v.numel() * v.element_size() for v in dev.values()) / S)
+    emit({"reduced": {"serve_rows_per_shard": [CONFIG.n_per_shard, idx.n_local],
+                      "why": "four shards of the deployment's 65536 rows would take four builds of "
+                             "about 130 s each, beyond the run's time limit"}})
+
+    # 2. batches through the launcher's loop
+    def plan_mix(qq_s, qq_t):
+        xq, yq = rel.query_map(qq_s, qq_t)
+        plans, _ = plan_sharded_batch(idx, np.float32(xq), np.float32(yq), config=default_planner_config())
+        return plans, [{PLAN_NAMES[p]: int((plans[j] == p).sum()) for p in PLAN_NAMES} for j in range(S)]
+
+    t0 = time.perf_counter()
+    plans, mix = plan_mix(s_q, t_q)
+    res["plan_ms"] = (time.perf_counter() - t0) * 1e3     # the host planner, all shards
+    res["plan_mix_per_shard"] = mix
+    sels, gt = SELECTIVITIES, gt_auto
+    while not (plans == int(QueryPlan.BRUTE_VALID)).any():
+        require(sels[0] > 1e-5, "no selectivity gives a BRUTE_VALID row")
+        sels = (sels[0] / 3,) + tuple(sels[1:])
+        qv, s_q, t_q = make_queries(BATCH, s, t, sels, 1)
+        gt = ground_truth(QuerySet(CONFIG.relation, qv[:1024], s_q[:1024], t_q[:1024], 0.0,
+                                   np.zeros(1024), K), vecs, s, t).gt_ids
+        plans, mix = plan_mix(s_q, t_q)
+        res["lowered_selectivities"] = {"selectivities": sels, "plan_mix_per_shard": mix}
+    qs = QuerySet(CONFIG.relation, qv[:1024], s_q[:1024], t_q[:1024], 0.0, np.zeros(1024), K, gt_ids=gt)
+    # every kernel launch of one auto batch held against its plain version
+    # at the shapes (and tiles) the shards give it: the graph batch's
+    # shapes (L 64, C 320) are among them
+    held = []
+    with held_launches("serving auto batch", held):
+        serve_batch(idx, mesh, qv, s_q, t_q, k=K, beam=BEAM)
+    held_names = {c["kernel"].split(" (")[0] for c in held}
+    require({"filter_dist_gather_packed", "beam_merge", "filter_dist_gather"} <= held_names,
+            f"the held serving batches launched only {sorted(held_names)}")
+    runs, results = {}, {}
+    for plan in ("auto", "graph"):
+        for merge in ("all_gather", "tournament"):
+            batcher = RequestBatcher(BATCH, DIM)
+            for _ in range(1 + SERVE_TIMED):
+                for i in range(BATCH):
+                    batcher.submit(qv[i], s_q[i], t_q[i])
+            reset_counts()
+            t0 = time.perf_counter()
+            ids, d, secs = serve_requests(idx, mesh, batcher, BATCH * (1 + SERVE_TIMED), k=K, beam=BEAM,
+                                          merge=merge, plan=plan)
+            wall = time.perf_counter() - t0
+            key = f"{plan}/{merge}"
+            launches[key] = dict(ops.LAUNCHES)
+            for name in ("filter_dist_gather_packed", "beam_merge"):
+                require(launches[key][name] >= 1 + SERVE_TIMED, f"{name} not launched on every {key} batch")
+            if plan == "auto":
+                require(launches[key]["filter_dist_gather"] >= 1 + SERVE_TIMED,
+                        f"B3 not launched on every {key} batch")
+            ids = ids.reshape(1 + SERVE_TIMED, BATCH, K)
+            d = d.reshape(1 + SERVE_TIMED, BATCH, K)
+            require(all(np.array_equal(ids[b], ids[0]) and np.array_equal(d[b], d[0])
+                        for b in range(1, 1 + SERVE_TIMED)), f"the {key} batches answered differently")
+            ids, d = ids[0], d[0]
+            require(np.all(np.isfinite(d)), f"serving {key} result")
+            results[key] = (ids, d)
+            timed = secs[1:]
+            runs[key] = {"qps": BATCH / statistics.median(timed),
+                         "p50_batch_ms": float(np.percentile(timed, 50) * 1e3),
+                         "p99_batch_ms": float(np.percentile(timed, 99) * 1e3),
+                         "warmup_batch_ms": secs[0] * 1e3,
+                         "loop_wall_per_batch_ms": wall / (1 + SERVE_TIMED) * 1e3,
+                         "recall_at_10": recall_at_k(ids[:1024], qs), "launches": launches[key],
+                         "loop_iterations": search_mod.LOOP_STATS["iterations"]}
+    for plan in ("auto", "graph"):
+        bad = mismatches(*results[f"{plan}/all_gather"], *results[f"{plan}/tournament"])
+        require(not bad, f"the two merges differ on {plan}: {bad[:5]}")
+        runs[f"{plan}/tournament"]["ids_equal_all_gather"] = bool(np.array_equal(
+            results[f"{plan}/all_gather"][0], results[f"{plan}/tournament"][0]))
+    res["batches"] = runs
+    by_name = traced_ms(lambda: serve_batch(idx, mesh, qv, s_q, t_q, k=K, beam=BEAM))
+    busy = sum(t for t, _ in by_name.values())
+    res["auto_profile"] = {
+        "device_busy_ms": busy, "idle_share": 1.0 - busy / runs["auto/all_gather"]["p50_batch_ms"],
+        "top": [[k[:60], round(t, 3), c] for k, (t, c) in
+                sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]]}
+
+    # the unfused step (B4) against the fused one, and the stats step against
+    # each shard's own counters, on SERVE_SUB queries snapped to f32
+    sub = slice(0, SERVE_SUB)
+    s32 = s_q[sub].astype(np.float32).astype(np.float64)
+    t32 = t_q[sub].astype(np.float32).astype(np.float64)
+    xq, yq = rel.query_map(s32, t32)
+    args = [dev[f] for f in STACK_FIELDS] + [qv[sub], np.float32(xq), np.float32(yq)]
+    fused = make_serving_step(mesh, CONFIG.relation, k=K, beam=BEAM)(*args)
+    with held_launches("serving unfused step", held):
+        make_serving_step(mesh, CONFIG.relation, k=K, beam=BEAM, fused=False)(*args)
+    require(any(c["kernel"].startswith("filter_dist (") for c in held), "the held unfused step ran no B4")
+    res["held_kernel_cases"] = held
+    reset_counts()
+    t0 = time.perf_counter()
+    unfused = make_serving_step(mesh, CONFIG.relation, k=K, beam=BEAM, fused=False)(*args)
+    torch.cuda.synchronize()
+    unfused_s = time.perf_counter() - t0
+    launches["unfused"] = dict(ops.LAUNCHES)
+    require(launches["unfused"]["filter_dist"] > 0, "B4 never launched on the unfused serving step")
+    bad = mismatches(fused[0].cpu().numpy(), fused[1].cpu().numpy(),
+                     unfused[0].cpu().numpy(), unfused[1].cpu().numpy())
+    require(not bad, f"unfused serving step vs fused: {bad[:5]}")
+    res["unfused"] = {"queries": SERVE_SUB, "batch_ms": unfused_s * 1e3, "launches": launches["unfused"],
+                      "ids_equal": bool(torch.equal(fused[0], unfused[0]))}
+    _, _, pq = make_serving_step(mesh, CONFIG.relation, k=K, beam=BEAM, stats=True)(*args)
+    summed = {}
+    for j in range(S):
+        st = execute_batch(shard_graph(idx, j), qv[sub], s32, t32, k=K, beam=BEAM, plan="graph",
+                           stats=True, device="cuda")[2]
+        for f in pq:
+            summed[f] = summed.get(f, 0) + np.asarray(getattr(st, f), np.int64)
+    for f, v in pq.items():
+        require(np.array_equal(v.cpu().numpy(), summed[f]), f"summed counter {f} differs")
+    res["stats_step"] = {"queries": SERVE_SUB, "equal_to_shard_sums": True,
+                         "iters_mean": float(pq["iters"].float().mean()),
+                         "hit_max_iters_shards_mean": float(pq["hit_max_iters"].float().mean())}
+
+    # 3. card against CPU
+    cpu_mesh = make_host_mesh(S, device="cpu")
+    sub = slice(0, SERVE_CPU_QUERIES)
+    t0 = time.perf_counter()
+    ids_c, d_c = serve_batch(idx, cpu_mesh, qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM)
+    cpu_s = time.perf_counter() - t0
+    ids_g, d_g = serve_batch(idx, mesh, qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM)
+    bad = mismatches(ids_c, d_c, ids_g, d_g)
+    require(not bad, f"serving card vs CPU: {bad[:5]}")
+    res["cpu_parity"] = {"queries": SERVE_CPU_QUERIES, "cpu_s": cpu_s,
+                         "ids_equal": bool(np.array_equal(ids_c, ids_g))}
+    idx.invalidate_device()
+    dev = idx.device(mesh.device)
+
+    # 4. one-rank NCCL process group on the card, against the single-process mesh
+    one = ShardedIndex(**{f: getattr(idx, f)[:1] for f in STACK_FIELDS}, relation=idx.relation,
+                       n_local=idx.n_local, planners=idx.planners[:1])
+    single = make_host_mesh(1, device="cuda")
+    want = {(p, m): serve_batch(one, single, qv, s_q, t_q, k=K, beam=BEAM, plan=p, merge=m)
+            for p in ("auto", "graph") for m in ("all_gather", "tournament")}
+    xq, yq = rel.query_map(s_q, t_q)
+    one_args = [one.device("cuda")[f] for f in STACK_FIELDS] + [qv, np.float32(xq), np.float32(yq)]
+    want_st = make_serving_step(single, CONFIG.relation, k=K, beam=BEAM, stats=True)(*one_args)
+    torch.cuda.set_device(0)
+    store = out / "nccl_store"             # a FileStore: no port to race for
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store.resolve()}", world_size=1, rank=0)
+    try:
+        pmesh = make_process_mesh(device="cuda")
+        for (p, m), (wi, wd) in want.items():
+            gi, gd = serve_batch(one, pmesh, qv, s_q, t_q, k=K, beam=BEAM, plan=p, merge=m)
+            require(np.array_equal(gi, wi) and np.array_equal(gd.view(np.int32), wd.view(np.int32)),
+                    f"the NCCL process group differs from the single-process mesh on {p}/{m}")
+        got_st = make_serving_step(pmesh, CONFIG.relation, k=K, beam=BEAM, stats=True)(*one_args)
+        require(torch.equal(got_st[0], want_st[0]) and all(
+            torch.equal(got_st[2][f], want_st[2][f]) for f in want_st[2]),
+            "the NCCL stats step differs from the single-process mesh")
+    finally:
+        dist.destroy_process_group()
+    res["nccl_one_rank"] = {"world_size": 1, "backend": "nccl", "bit_equal": True,
+                            "cases": [f"{p}/{m}" for p, m in want] + ["stats"]}
+    emit({"serve": res})
+    del one, dev
+
+    # 5. the streaming server over the streaming phase's index
+    sq_v, sq_s, sq_t = stream_q
+    srv_res = overload(stream_idx, sq_v, sq_s, sq_t, StreamingServer, adm_mod)
+    stream_idx.policy = CompactionPolicy(max_delta_fraction=0.005, min_mutations=64)
+    extra = max(64, stream_idx.live_count // 100)
+    mv, ms_, mt = make_dataset(extra, DIM, seed=21)
+    stream_idx.insert_batch(mv, ms_, mt)
+    srv = StreamingServer(stream_idx, batch_size=BATCH, k=K, beam=BEAM, timeout_s=0.0)
+    epoch, delta_live = stream_idx.epoch, stream_idx._delta.live_count
+    t0 = time.perf_counter()
+    require(srv.maybe_compact_async(), "the server started no compaction")
+    served = 0
+    # a few batches while the epoch builds (at least one), then wait: every
+    # step's host work competes with the build's host sweep for the GIL
+    while served < 4:
+        for i in range(BATCH):
+            srv.submit(sq_v[i], sq_s[i], sq_t[i])
+        require(len(srv.step(force=True)) == BATCH, "a batch during the compaction went unanswered")
+        served += 1
+        if not srv.compacting:
+            break
+    srv.join_compaction()
+    wall = time.perf_counter() - t0
+    require(stream_idx.epoch == epoch + 1 and len(srv.compactions) == 1, "the compaction did not swap")
+    require(srv.compactions[0].delta_drained == delta_live and stream_idx._delta.live_count == 0,
+            "the swap did not drain the delta")
+    rids = [srv.submit(sq_v[i], sq_s[i], sq_t[i]) for i in range(BATCH)]
+    after = srv.step(force=True)
+    want = stream_idx.search(sq_v[:BATCH], sq_s[:BATCH], sq_t[:BATCH], k=K, beam=BEAM, plan="auto")
+    require(np.array_equal(np.stack([after[r][0] for r in rids]), want[0]) and
+            np.array_equal(np.stack([after[r][1] for r in rids]).view(np.int32), want[1].view(np.int32)),
+            "the server's answers after the swap differ from index.search")
+    srv_res["compaction"] = {**dataclasses.asdict(srv.compactions[0]), "wall_s": wall,
+                             "batches_served_during_build": served, "inserted_before": extra}
+    emit({"streaming_server": srv_res})
+
+    # 6. the sharded streaming index: host merge against the stacked step
+    sidx = ShardedStreamingIndex(DIM, CONFIG.relation, 2, device="cuda", **SHARDED_STREAM)
+    load = 2 * SHARDED_STREAM_LOAD
+    lv, ls, lt = make_dataset(load, DIM, seed=31)
+    t0 = time.perf_counter()
+    sidx.insert_batch(lv, ls, lt)
+    load_s = time.perf_counter() - t0
+    for e in range(0, load, 97):
+        sidx.delete(e)
+    qq, qs_, qt_ = make_queries(BATCH, ls, lt, SELECTIVITIES, 41)
+    host = sidx.search(qq, qs_, qt_, k=K, beam=BEAM, plan="graph")
+    smesh = make_host_mesh(2, device="cuda")
+    stacked = sidx.stacked_arrays()
+    held = []
+    with held_launches("sharded streaming step", held):
+        serve_streaming_batch(stacked, smesh, CONFIG.relation, qq, qs_, qt_, k=K, beam=BEAM)
+    reset_counts()
+    t0 = time.perf_counter()
+    ids, d = serve_streaming_batch(stacked, smesh, CONFIG.relation, qq, qs_, qt_, k=K, beam=BEAM)
+    step_s = time.perf_counter() - t0
+    launches["sharded_stream"] = dict(ops.LAUNCHES)
+    for name in STREAM_KERNELS:
+        require(launches["sharded_stream"][name] > 0, f"{name} never launched on the stacked streaming step")
+    bad = mismatches(*host, ids, d)
+    require(not bad, f"stacked streaming step vs host merge: {bad[:5]}")
+    require(not np.isin(ids, np.arange(0, load, 97)).any(), "a deleted id came back")
+    step = make_streaming_serving_step(smesh, k=K, beam=BEAM, stats=True)
+    *_, st = serve_streaming_batch(stacked, smesh, CONFIG.relation, qq, qs_, qt_, step=step, k=K, beam=BEAM)
+    keep = {k: v.copy() for k, v in stacked.items()}
+    for sh in sidx.shards:
+        sh.policy = CompactionPolicy(max_delta_fraction=0.01, min_mutations=64)
+    i = sidx.maybe_compact_shards()
+    require(i in (0, 1), "no shard compacted")
+    fresh = sidx.refresh_shard(stacked, i)
+    require(all(np.array_equal(stacked[k], keep[k]) for k in stacked), "refresh_shard changed the old dict")
+    require(all(fresh[k].shape == stacked[k].shape for k in stacked), "refresh_shard changed a shape")
+    ids2, d2 = serve_streaming_batch(fresh, smesh, CONFIG.relation, qq, qs_, qt_, k=K, beam=BEAM)
+    bad = mismatches(*sidx.search(qq, qs_, qt_, k=K, beam=BEAM, plan="graph"), ids2, d2)
+    require(not bad, f"stacked step after refresh_shard vs host merge: {bad[:5]}")
+    emit({"sharded_stream": {
+        "shards": 2, **{k: v for k, v in SHARDED_STREAM.items() if k != "build_kwargs"},
+        "loaded": load, "load_s": load_s, "epochs": [sh.epoch for sh in sidx.shards],
+        "step_batch_ms": step_s * 1e3, "launches": launches["sharded_stream"],
+        "ids_equal_host_merge": bool(np.array_equal(host[0], ids)),
+        "delta_valid_mean": float(st["delta_valid"].mean()), "compacted_shard": i,
+        "refresh_keeps_old": True, "held_kernel_cases": held}})
     return launches
 
 
@@ -1715,9 +2222,17 @@ def main(argv=None) -> int:
 
     # 11. streaming: the two-tier index, its WAL and recovery, at the shard's shape
     t0 = time.perf_counter()
-    stream_launches = stream_phase(n, ROOT / "build" / "stream_work")
+    stream_launches, stream_idx, stream_q = stream_phase(n, ROOT / "build" / "stream_work")
     RECORD["stream_s"] = time.perf_counter() - t0
     RECORD["launches_by_path"]["stream"] = stream_launches
+
+    # 12. serving: the sharded index through the launcher's loop, the streaming
+    # server, the sharded streaming index
+    t0 = time.perf_counter()
+    serve_launches = serve_phase(n, vecs, s, t, qv, s_q, t_q, gt["auto"], stream_idx, stream_q, out)
+    RECORD["serve_s"] = time.perf_counter() - t0
+    RECORD["launches_by_path"]["serve"] = serve_launches
+    del stream_idx
 
     # kernel -> (source, the TPU kernel's pallas_call, the path its launches count on)
     replaces = {
@@ -1746,6 +2261,8 @@ def main(argv=None) -> int:
             "fraction_of_bound": r["bound_ms"] / r["ms"], "queued_ms": r["queued_ms"],
             "stream_launches": (stream_launches["unfused"][name] if name == "filter_dist" else
                                 sum(stream_launches[p][name] for p in ("auto", "graph", "wide"))),
+            "serve_launches": (serve_launches["unfused"][name] if name == "filter_dist" else
+                               serve_launches["auto/all_gather"][name]),
             "ok": True,
         })
     RECORD["seconds"] = time.perf_counter() - t_all

@@ -1,0 +1,1 @@
+"""Entry-point scripts of the port (``python -m repro_torch.launch.serve``)."""

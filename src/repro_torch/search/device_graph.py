@@ -42,6 +42,7 @@ import torch
 from repro_torch.core.entry import EntryTable
 from repro_torch.core.graph import LabeledGraph
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import unpack_labels as _unpack_labels_tensor
 from repro_torch.kernels.ref import warp_dot
 
 # canonical ranks are packed two-per-word in 16-bit halves; a grid axis
@@ -82,6 +83,16 @@ def unpack_labels(plabels: np.ndarray) -> np.ndarray:
     out[..., 2] = (plabels[..., 1] & 0xFFFF).astype(np.int32)
     out[..., 3] = (plabels[..., 1] >> 16).astype(np.int32)
     return out
+
+
+def unpack_labels_device(plabels: torch.Tensor) -> torch.Tensor:
+    """Torch twin of :func:`unpack_labels` for device tensors: packed word
+    pairs ``[..., 2]`` (int32 bit patterns, as ``DeviceGraph.device()``
+    stages them) -> int32 ``[..., 4]`` rectangles, on the tensor's device.
+    The serving step's ``fused=False`` branch reads its int32 rectangles
+    from a packed label stack through it; one definition of the word
+    layout, shared with the kernels' plain versions (``kernels/ref.py``)."""
+    return _unpack_labels_tensor(plabels)
 
 
 @dataclasses.dataclass(frozen=True)

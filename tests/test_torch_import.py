@@ -28,7 +28,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
-    assert int(out[0]) >= 30                       # every submodule was imported
+    assert int(out[0]) >= 45                       # every submodule was imported
     assert len(out) == 1, f"loaded: {out[1]}"
 
 
@@ -45,6 +45,25 @@ print(",".join(bad) or "none")
 def test_obs_and_stream_import_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", OBS_STREAM], env=env, capture_output=True,
+                         text=True, check=True).stdout.split()
+    assert out == ["none"], f"loaded: {out}"
+
+
+SERVE = """
+import sys
+import repro_torch.serve, repro_torch.distributed, repro_torch.launch.serve
+from repro_torch.serve import (StreamingServer, build_sharded_index, serve_batch,
+                               serve_streaming_batch, sharded_index_from_numpy)
+from repro_torch.distributed import ShardMesh, make_host_mesh, make_process_mesh
+from repro_torch.launch.serve import main, serve_requests
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(",".join(bad) or "none")
+"""
+
+
+def test_serve_distributed_and_launcher_import_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", SERVE], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
     assert out == ["none"], f"loaded: {out}"
 
