@@ -62,7 +62,7 @@ kernel launch counts to 0 just before it and reads them just after:
     then 8 of them at beam 300, whose wide search (L 600) takes B2's chunked
     selection;
 11. streaming (``stream_phase``): a ``StreamingIndex`` at the shard's shape
-    (node capacity n, delta capacity n/8) loaded with 7n/16 objects through
+    (node capacity n, delta capacity n/8) loaded with 3n/16 objects through
     ``insert`` (a compaction each time the delta fills), snapshotted, then
     n/32 inserts and 1 % deletes through a ``WriteAheadLog(sync="always")``;
     4096 queries with ``plan`` auto, graph and wide (B1-B3 must launch on
@@ -82,7 +82,21 @@ kernel launch counts to 0 just before it and reads them just after:
     gates, a background compaction while it serves); a two-shard
     ``ShardedStreamingIndex`` (host merge against the stacked step, B3 on
     the delta tier, its launches held as above, ``refresh_shard``
-    copy-on-write).
+    copy-on-write);
+13. segmented (``segmented_phase``): ``build_segmented_index`` over a quarter
+    of the corpus (up to 16 segments, int8, the wave constructor on the card), then
+    routed 4096-query batches with ``plan`` auto, graph, wide and brute (B1,
+    B2 on every batch, B3 on auto): one dispatch a batch whatever the routed
+    mix (B1 once an iteration, B2 once an iteration plus one fold), the
+    scheduler bit-equal to the per-segment loop, ``fused=False`` (B4), every
+    launch of one auto batch held bitwise, B2 timed on the fold's inputs,
+    the host rerank tail and routing timed, card against CPU, quarantine and
+    lift; the segments through ``segments_to_sharded_index`` and
+    ``serve_batch`` (the primed device bundle); a ``SegmentedStreamingIndex``
+    with its WALs and manifest: B1-B3 on its searches, acknowledged inserts
+    read back, ``recover_segmented`` bit-equal, a segment-local stack patch,
+    a corrupt snapshot quarantined and rebuilt. A quarantine or a degraded
+    answer in a step that injects no fault fails the run.
 
 Prints one JSON object per line; the line before the last is the kernel
 table and the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -592,11 +606,12 @@ def shuffle_beam(args, gen) -> tuple:
     return tuple(torch.gather(x, 1, perm) for x in args[:3]) + args[3:]
 
 
-# (B, L, C): one pair a lane (L <= 32), 8 a lane (L 129-256), 16 a lane
+# (B, L, C): one pair a lane (L <= 32; L 10 and 20 with C 16·L are the
+# segment fold's shapes, fetch k and 2k over 16 segments), 8 a lane (L 129-256), 16 a lane
 # (L 257-512, the widest in registers) and wider than the registers (the
 # chunked selection: the wide search of a beam-300 batch, and three chunks)
-MERGE_WIDTHS = ((512, 7, 100), (512, 32, 720), (512, 200, 720), (512, 300, 600),
-                (256, 600, 1440), (64, 1100, 300))
+MERGE_WIDTHS = ((512, 7, 100), (512, 10, 160), (512, 20, 320), (512, 32, 720), (512, 200, 720),
+                (512, 300, 600), (256, 600, 1440), (64, 1100, 300))
 
 
 def merge_width_cases(n, visited) -> list:
@@ -1299,11 +1314,11 @@ def stream_phase(n: int, work: Path) -> tuple:
     shape, on the card; returns the kernel launches of its searches by
     search, the index after its epoch swap and the phase's queries (the
     serving phase serves them through a ``StreamingServer``). Sizes scale with ``n`` (65536: node capacity 65536, delta
-    capacity 8192, 28672 objects loaded, 2048 mutations logged):
+    capacity 8192, 12288 objects loaded, 2048 mutations logged):
 
     1. construct with the shard's capacities and build settings;
     2. load through ``insert_batch``: each full delta forces a compaction
-       (at 8192, 16384 and 24576 objects), each reported;
+       (at 8192 objects), each reported;
     3. a snapshot, then a ``WriteAheadLog(sync="always")``: 2048 inserts and
        deletes of 1 % of the live objects, over both tiers, each
        acknowledged after its fsync;
@@ -1335,7 +1350,7 @@ def stream_phase(n: int, work: Path) -> tuple:
     work.mkdir(parents=True)
     scale = n / FULL_N
     ncap, dcap = n, n // 8
-    n_load, n_mut = (7 * n) // 16, n // 32
+    n_load, n_mut = (3 * n) // 16, n // 32
     res = {"node_capacity": ncap, "delta_capacity": dcap, "edge_capacity": 768,
            "loaded": n_load, "logged_inserts": n_mut}
     reports, deleted, seen = [], set(), []
@@ -1529,8 +1544,9 @@ def stream_phase(n: int, work: Path) -> tuple:
         res["scale"] = scale
     emit({"reduced": {"stream_live": [ncap, idx.live_count],
                       "why": "the JAX package has no bulk load: loading through insert costs one "
-                             "rebuild per delta fill, and the full shard would take 7 rebuilds of "
-                             "up to 57344 nodes, beyond the run's time limit"}})
+                             "rebuild per delta fill (the full shard: 7 rebuilds of up to 57344 "
+                             "nodes); 3n/16 objects, one rebuild, keep the script with the "
+                             "segmented phase within the run's time limit"}})
     emit({"stream": res})
     shutil.rmtree(work, ignore_errors=True)
     return launches, idx, (qv, s_q, t_q)
@@ -2028,6 +2044,487 @@ def serve_phase(n: int, vecs, s, t, qv, s_q, t_q, gt_auto, stream_idx, stream_q,
     return launches
 
 
+SEG_CELLS = 4                 # cells_per_axis of the segmented build (up to 16 segments)
+SEG_TIMED = 3                 # timed batches per plan after one warm-up
+SEG_SUB = 1024                # queries of the unfused search
+SEG_CPU_QUERIES = 64          # card against CPU
+SEG_STREAM = dict(node_capacity=4096, delta_capacity=512, edge_capacity=768, M=16, Z=128, K_p=8)
+SEG_STREAM_STORAGE = dict(policy=None, build_kwargs=dict(batched=True), wal_segment_bytes=1 << 20)
+SEG_STREAM_LOAD = 3000        # objects loaded into the streaming tier (2 x 2 cells; the
+                              # containment plane puts about 1500 in each of two cells)
+
+
+def lexsorted(ids, d) -> bool:
+    """Every row ascending by (distance, id), -1 / +inf padding last: the
+    rerank's (the ground truth's) order."""
+    dd = np.where(ids >= 0, d, np.inf).astype(np.float64)
+    key_ok = (dd[:, 1:] > dd[:, :-1]) | ((dd[:, 1:] == dd[:, :-1]) &
+                                          ((ids[:, 1:] > ids[:, :-1]) | (ids[:, 1:] < 0)))
+    return bool(np.all(key_ok | np.isinf(dd[:, 1:])))
+
+
+def segment_plans(idx, route, s_q, t_q) -> dict:
+    """The plan mix of a routed batch over every (query, segment) pair, as
+    the scheduler plans them (default thresholds)."""
+    from repro_torch.exec.plan import plan_queries
+
+    counts = np.zeros(3, np.int64)
+    for si, seg in enumerate(idx.segments):
+        rows = np.flatnonzero(route[:, si])
+        if rows.size:
+            st, _, inv = prepare_states_extended(seg.dg, s_q[rows], t_q[rows])
+            counts += np.bincount(plan_queries(seg.dg.planner, st, inv,
+                                               config=default_planner_config()).plans, minlength=3)
+    return {PLAN_NAMES[p]: int(c) for p, c in enumerate(counts)}
+
+
+def segmented_phase(n: int, vecs, s, t, out: Path) -> dict:
+    """The segmented tier (``repro_torch.scale``) on the card; returns the
+    kernel launches of each counted run. Sizes scale with ``n``:
+
+    1. ``build_segmented_index`` over the first n/4 rows of the main path's
+       corpus (containment, ``cells_per_axis`` 4, M 16, Z 128, K_p 8, wave
+       512, int8, planner buckets 64): segments, capacities, slot use, the
+       stack's device bytes and one auto batch's visited bitmaps;
+    2. 4096 queries at the main path's selectivities, k 10, beam 64, rerank
+       on, with ``plan`` auto, graph, wide and brute: routed pairs,
+       worklist capacity, plan mix, recall@10 against exact ground truth,
+       QPS, p50, p99; B1 and B2 on every batch, B3 on the auto one. One
+       dispatch for any mix: on the 0.003 rows alone and the 0.3 rows
+       alone, ``dispatch_count`` rises by 1, B1 launches once an iteration
+       and B2 once an iteration plus the one fold. ``scheduler=False``
+       equals the scheduler bit for bit (results and counters);
+       ``fused=False`` (B4) equals the fused search under the tie rule;
+       every launch of one auto batch held bitwise against its plain
+       version; B2 timed on the fold's own inputs; the rerank tail and the
+       routing timed on the host;
+    3. 64 of the queries on the CPU (plain versions) against the card; the
+       final order is (distance, id);
+    4. a routed segment quarantined: named by ``return_partial``, none of
+       its ids returned, still one dispatch a batch; lifted: the earlier
+       results bit for bit;
+    5. ``segments_to_sharded_index`` and ``serve_batch`` (auto and graph,
+       ``all_gather``, and ``tournament`` when the segment count is a power
+       of two): every remapped id valid and unique in its row, 64 queries on
+       the CPU against the card, recall@10, the primed bundle used;
+    6. ``SegmentedStreamingIndex`` (2 x 2 cells, node 4096, delta 512, edge
+       768 a cell, a ``storage_dir``): 3000 objects through ``insert_batch``
+       (about 1500 in each of the two cells the containment plane fills), ``save_snapshot``, 256 inserts and 1 % deletes
+       through the WALs; auto and graph searches launch B1-B3; acknowledged
+       inserts read back, no deleted id returned; ``recover_segmented`` on
+       the card bit-equal, nothing quarantined; one epoch swap repatches
+       only its cell's slice of ``device_stack()``; a corrupt snapshot (on a
+       copy) quarantines its cell only when its WAL lost the history, and
+       ``maybe_rebuild`` restores it once the file is repaired.
+
+    No step that injects no fault may quarantine a segment or report a
+    degraded answer."""
+    import shutil
+
+    from repro_torch.core.predicates import DominanceSpace, get_relation
+    from repro_torch.distributed import make_host_mesh
+    from repro_torch.scale import (
+        SegmentedStreamingIndex,
+        SegmentGrid,
+        build_segmented_index,
+        dispatch_count,
+        read_manifest,
+        recover_segmented,
+        worklist_capacity,
+    )
+    from repro_torch.scale.durability import segment_dir
+    from repro_torch.serve import segments_to_sharded_index, serve_batch
+    from repro_torch.stream import WriteAheadLog
+
+    rel = get_relation(CONFIG.relation)
+    launches, res = {}, {}
+
+    def clean(what, info=None):
+        require(not idx.quarantined, f"a segment was quarantined by {what}")
+        require(info is None or not info.degraded, f"{what} reported a degraded answer")
+
+    # 1. the build
+    rows = n // 4
+    sv, ss, st_ = vecs[:rows], s[:rows], t[:rows]
+    emit({"reduced": {"segmented_rows": [FULL_N, rows],
+                      "why": "the build is host-sweep bound (about 1.8 ms a node): a quarter "
+                             "of the corpus keeps the script within the run's time limit"}})
+    reset_counts()
+    t0 = time.perf_counter()
+    idx = build_segmented_index(sv, ss, st_, CONFIG.relation, cells_per_axis=SEG_CELLS, M=16, Z=128,
+                                K_p=8, wave=512, quantize_int8=True, planner_buckets=64, device="cuda")
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    res["build_launches"] = dict(ops.LAUNCHES)
+    require(res["build_launches"]["filter_dist_gather"] > 0, "the segmented build launched no B3")
+    S, ncap = idx.num_segments, idx.node_capacity
+    sizes = idx.segment_sizes()
+    stack = idx.device_stack()
+    res.update(rows=rows, segments=S, node_capacity=ncap, E=idx.edge_capacity, packed=idx.packed,
+               segment_sizes=sizes.tolist(), slot_utilization=float(sizes.sum() / (S * ncap)),
+               waves=sum(seg.report.waves for seg in idx.segments),
+               stack_device_bytes=stack.nbytes_by_component(), at_rest_bytes=idx.nbytes_by_component())
+    require(S >= 2 and int(sizes.sum()) == rows, "the segmented build")
+
+    # 2. routed batches
+    qv, s_q, t_q = make_queries(BATCH, ss, st_, SELECTIVITIES, 61)
+    n_gt = 1024
+    qs = ground_truth(QuerySet(CONFIG.relation, qv[:n_gt], s_q[:n_gt], t_q[:n_gt], 0.0,
+                               np.zeros(n_gt), K), sv, ss, st_)
+    t0 = time.perf_counter()
+    route0, _ = idx.coarse_route(s_q, t_q)
+    x_q, y_q, *_ = idx._query_states(s_q, t_q)
+    route = idx._refine_route(route0, x_q, y_q)
+    res["route_ms"] = (time.perf_counter() - t0) * 1e3
+    W = int(route.sum())
+    res.update(routed_pairs=W, coarse_pairs=int(route0.sum()), worklist_capacity=worklist_capacity(W),
+               routed_segments_per_query=float(route.sum(1).mean()),
+               plan_mix=segment_plans(idx, route, s_q, t_q),
+               visited_bitmap_bytes=worklist_capacity(W) * ((S * ncap + 31) // 32) * 4)
+    if not res["plan_mix"]["BRUTE_VALID"]:
+        sels = SELECTIVITIES
+        while not res["plan_mix"]["BRUTE_VALID"]:
+            require(sels[0] > 1e-5, "no selectivity gives a BRUTE_VALID row")
+            sels = (sels[0] / 3,) + tuple(sels[1:])
+            qv, s_q, t_q = make_queries(BATCH, ss, st_, sels, 61)
+            route0, _ = idx.coarse_route(s_q, t_q)
+            x_q, y_q, *_ = idx._query_states(s_q, t_q)
+            route = idx._refine_route(route0, x_q, y_q)
+            res["plan_mix"] = segment_plans(idx, route, s_q, t_q)
+        res["lowered_selectivities"] = {"selectivities": sels, "plan_mix": res["plan_mix"]}
+        qs = ground_truth(QuerySet(CONFIG.relation, qv[:n_gt], s_q[:n_gt], t_q[:n_gt], 0.0,
+                                   np.zeros(n_gt), K), sv, ss, st_)
+    batches, results = {}, {}
+    for plan in ("auto", "graph", "wide", "brute"):
+        reset_counts()
+        d0 = dispatch_count()
+        lat = []
+        for _ in range(1 + SEG_TIMED):
+            t0 = time.perf_counter()
+            ids, d, info = idx.search(qv, s_q, t_q, k=K, beam=BEAM, plan=plan, return_partial=True)
+            lat.append(time.perf_counter() - t0)
+            clean(f"the {plan} batch", info)
+        launches[plan] = dict(ops.LAUNCHES)
+        require(dispatch_count() - d0 == 1 + SEG_TIMED, f"more than one dispatch a {plan} batch")
+        for name in ("beam_merge",) + (("filter_dist_gather_packed",) if plan != "brute" else ()) + (
+                ("filter_dist_gather",) if plan in ("auto", "brute") else ()):
+            require(launches[plan][name] >= 1 + SEG_TIMED, f"{name} not launched on every segmented {plan} batch")
+        require(ids.shape == (BATCH, K) and np.all(np.isfinite(d)), f"segmented {plan} result")
+        require(lexsorted(ids, d), f"the {plan} answer is not in (distance, id) order")
+        results[plan] = (ids, d)
+        timed = lat[1:]
+        batches[plan] = {"qps": BATCH / statistics.median(timed),
+                         "p50_batch_ms": float(np.percentile(timed, 50) * 1e3),
+                         "p99_batch_ms": float(np.percentile(timed, 99) * 1e3),
+                         "warmup_batch_ms": lat[0] * 1e3, "recall_at_10": recall_at_k(ids[:n_gt], qs),
+                         "launches": launches[plan],
+                         "loop_iterations": search_mod.LOOP_STATS["iterations"]}
+    require(batches["brute"]["recall_at_10"] >= 0.999, f"segmented brute recall {batches['brute']}")
+    res["batches"] = batches
+    by_name = traced_ms(lambda: idx.search(qv, s_q, t_q, k=K, beam=BEAM))
+    busy = sum(t for t, _ in by_name.values())
+    res["auto_profile"] = {
+        "device_busy_ms": busy, "idle_share": 1.0 - busy / batches["auto"]["p50_batch_ms"],
+        "top": [[k[:60], round(t, 3), c] for k, (t, c) in
+                sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]]}
+
+    # one dispatch for any mix: the rarest and the broadest rows alone
+    mixes = {}
+    for sel in (SELECTIVITIES[0], SELECTIVITIES[-1]):
+        mq, ms_, mt = make_queries(BATCH, ss, st_, (sel,), 62)
+        reset_counts()
+        d0, it0 = dispatch_count(), search_mod.LOOP_STATS["iterations"]
+        _, _, mroute, info = idx.search(mq, ms_, mt, k=K, beam=BEAM, return_route=True,
+                                        return_partial=True)
+        clean(f"the {sel} mix", info)
+        iters = search_mod.LOOP_STATS["iterations"] - it0
+        got = dict(ops.LAUNCHES)
+        mixes[str(sel)] = {"routed_pairs": int(mroute.sum()),
+                           "routed_segments": int(mroute.any(0).sum()),
+                           "dispatches": dispatch_count() - d0, "iterations": iters, "launches": got}
+        require(dispatch_count() - d0 == 1, f"the {sel} mix took more than one dispatch")
+        require(got["filter_dist_gather_packed"] == iters and got["beam_merge"] == iters + 1,
+                f"the {sel} mix: B1/B2 launches {got} against {iters} iterations and one fold")
+    require(mixes[str(SELECTIVITIES[0])]["routed_pairs"] != mixes[str(SELECTIVITIES[-1])]["routed_pairs"],
+            "the two mixes route the same pairs")
+    res["mixes"] = mixes
+
+    # the loop against the scheduler, bit for bit, counters too
+    a = idx.search(qv, s_q, t_q, k=K, beam=BEAM, stats=True)
+    t0 = time.perf_counter()
+    b = idx.search(qv, s_q, t_q, k=K, beam=BEAM, stats=True, scheduler=False)
+    loop_s = time.perf_counter() - t0
+    require(np.array_equal(a[0], b[0]) and np.array_equal(a[1].view(np.int32), b[1].view(np.int32)),
+            "the scheduler differs from the per-segment loop")
+    require(all(np.array_equal(x, y) for x, y in zip(a[2], b[2])),
+            "the scheduler's counters differ from the loop's")
+    clean("the loop")
+    res["scheduler_vs_loop"] = {"bit_equal": True, "loop_batch_ms": loop_s * 1e3,
+                                "hit_max_iters_share": float(np.mean(a[2].hit_max_iters))}
+
+    # the unfused search (B4) against the fused one
+    sub = slice(0, SEG_SUB)
+    reset_counts()
+    t0 = time.perf_counter()
+    un = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM, fused=False)
+    un_s = time.perf_counter() - t0
+    launches["unfused"] = dict(ops.LAUNCHES)
+    require(launches["unfused"]["filter_dist"] > 0, "B4 never launched on the unfused segmented search")
+    fu = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM)
+    bad = mismatches(*fu, *un)
+    require(not bad, f"unfused segmented search vs fused: {bad[:5]}")
+    res["unfused"] = {"queries": SEG_SUB, "batch_ms": un_s * 1e3, "launches": launches["unfused"],
+                      "ids_equal": bool(np.array_equal(fu[0], un[0]))}
+
+    # every launch of one auto batch held against its plain version, and
+    # the fold's inputs captured for B2's timed case
+    held, fold = [], []
+    fetch = 2 * K
+    with held_launches("segmented auto batch", held):
+        held_merge = ops.beam_merge
+
+        def capture(*args, n, visited=None):
+            if args[0].shape[1] == fetch and visited is None and not fold:
+                fold.append(tuple(x.clone() for x in args) + (n,))
+            return held_merge(*args, n=n, visited=visited)
+
+        ops.beam_merge = capture
+        ids, d = idx.search(qv, s_q, t_q, k=K, beam=BEAM)
+    require(np.array_equal(ids, results["auto"][0]), "the held auto batch answered differently")
+    held_names = {c["kernel"].split(" (")[0] for c in held}
+    require({"filter_dist_gather_packed", "beam_merge", "filter_dist_gather"} <= held_names,
+            f"the held segmented batch launched only {sorted(held_names)}")
+    res["held_kernel_cases"] = held
+    require(len(fold) == 1 and fold[0][3].shape[1] == S * fetch, "the fold's inputs were not captured")
+    *fargs, fn = fold[0]
+    fold_case = merge_case(tuple(fargs), fn, torch.zeros((BATCH, (fn + 31) // 32), dtype=torch.int32,
+                                                         device="cuda"), case="segment fold")
+    RECORD["kernel_cases"].append(fold_case)
+    res["fold_case"] = {k: fold_case[k] for k in ("L", "C", "ms", "queued_ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "fraction_of_bound")}
+
+    # the host tail: routing and the exact rerank, alone
+    cand_ids, cand_d = idx.search(qv, s_q, t_q, k=fetch, beam=BEAM, rerank=False, fetch_k=fetch)
+    t0 = time.perf_counter()
+    rr = idx._rerank_exact(qv, cand_ids.astype(np.int32), cand_d, K)
+    res["rerank_ms"] = (time.perf_counter() - t0) * 1e3
+    require(np.array_equal(rr[0], results["auto"][0]), "the rerank alone gives another answer")
+
+    # 3. card against CPU
+    sub = slice(0, SEG_CPU_QUERIES)
+    t0 = time.perf_counter()
+    ids_c, d_c = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    ids_g, d_g = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM)
+    bad = mismatches(ids_c, d_c, ids_g, d_g)
+    require(not bad, f"segmented card vs CPU: {bad[:5]}")
+    require(lexsorted(ids_c, d_c), "the CPU answer is not in (distance, id) order")
+    res["cpu_parity"] = {"queries": SEG_CPU_QUERIES, "cpu_s": cpu_s,
+                         "ids_equal": bool(np.array_equal(ids_c, ids_g))}
+    idx._stacks.pop("cpu", None)
+    for seg in idx.segments:
+        seg.dg._cache.pop(("device", "cpu"), None)
+
+    # 4. quarantine one routed segment, then lift it
+    victim = int(np.argmax(route.sum(0)))
+    idx.quarantine_segment(victim)
+    reset_counts()
+    d0, it0 = dispatch_count(), search_mod.LOOP_STATS["iterations"]
+    ids_q, d_q, info = idx.search(qv, s_q, t_q, k=K, beam=BEAM, return_partial=True)
+    iters = search_mod.LOOP_STATS["iterations"] - it0
+    got = dict(ops.LAUNCHES)
+    require(info.degraded and victim in info.missing_segments, "return_partial did not name the segment")
+    require(not np.isin(ids_q, idx.segments[victim].ids).any(), "a quarantined segment's id came back")
+    require(dispatch_count() - d0 == 1 and got["filter_dist_gather_packed"] == iters
+            and got["beam_merge"] == iters + 1, "the quarantined batch is not one dispatch")
+    missing = info.missing_segments
+    idx.lift_quarantine(victim)
+    ids_l, d_l, info = idx.search(qv, s_q, t_q, k=K, beam=BEAM, return_partial=True)
+    clean("the lifted batch", info)
+    require(np.array_equal(ids_l, results["auto"][0]) and
+            np.array_equal(d_l.view(np.int32), results["auto"][1].view(np.int32)),
+            "lifting the quarantine did not restore the results")
+    res["quarantine"] = {"segment": victim, "segment_rows": int(sizes[victim]),
+                         "missing": missing, "launches": got, "iterations": iters,
+                         "restored_bit_equal": True}
+
+    # 5. the segments served through the sharded step
+    t0 = time.perf_counter()
+    sh, id_map = segments_to_sharded_index(idx)
+    res_sh = {"stack_s": time.perf_counter() - t0}
+    primed = sh._cache[("device", "cuda", None)]
+    mesh = make_host_mesh(S, device="cuda")
+    require(sh.device(mesh.device) is primed, "ShardedIndex.device() did not return the primed bundle")
+    require(primed["labels"].data_ptr() == idx.device_stack().flat("labels").data_ptr(),
+            "the primed labels are not the stack's")
+    merges = ("all_gather", "tournament") if S & (S - 1) == 0 else ("all_gather",)
+    served = {}
+    for plan in ("auto", "graph"):
+        for merge in merges:
+            reset_counts()
+            t0 = time.perf_counter()
+            ids, d = serve_batch(sh, mesh, qv, s_q, t_q, k=K, beam=BEAM, plan=plan, merge=merge,
+                                 id_map=id_map)
+            wall = time.perf_counter() - t0
+            key = f"{plan}/{merge}"
+            launches[f"sharded {key}"] = dict(ops.LAUNCHES)
+            for b_ in range(BATCH):
+                row = ids[b_][ids[b_] >= 0]
+                require(np.unique(row).size == row.size, f"an id twice in a sharded {key} row")
+                require(rel.valid_mask(ss, st_, s_q[b_], t_q[b_])[row].all(),
+                        f"a sharded {key} id fails its predicate")
+            served[key] = {"batch_ms": wall * 1e3, "recall_at_10": recall_at_k(ids[:n_gt], qs),
+                           "launches": launches[f"sharded {key}"]}
+            if key == "auto/all_gather":
+                want = (ids, d)
+    require(sh.device(mesh.device) is primed, "serve_batch staged the sharded index again")
+    cpu_mesh = make_host_mesh(S, device="cpu")
+    sub = slice(0, SEG_CPU_QUERIES)
+    ids_c, d_c = serve_batch(sh, cpu_mesh, qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM, id_map=id_map)
+    bad = mismatches(ids_c, d_c, want[0][sub], want[1][sub])
+    require(not bad, f"sharded segments card vs CPU: {bad[:5]}")
+    res_sh.update(shards=S, merges=list(merges), batches=served,
+                  cpu_parity={"queries": SEG_CPU_QUERIES,
+                              "ids_equal": bool(np.array_equal(ids_c, want[0][sub]))},
+                  primed_bundle_used=True, segmented_recall_at_10=batches["auto"]["recall_at_10"])
+    res["sharded"] = res_sh
+    del sh, primed, cpu_mesh
+    emit({"segmented": res})
+
+    # 6. the segmented streaming tier
+    work = out / "segmented_stream"
+    shutil.rmtree(work, ignore_errors=True)
+    lv, ls, lt = make_dataset(SEG_STREAM_LOAD, DIM, seed=51)
+    grid = SegmentGrid.from_space(DominanceSpace.from_intervals(rel, ls, lt), 2)
+    kw = SEG_STREAM_STORAGE
+    sidx = SegmentedStreamingIndex(DIM, CONFIG.relation, grid, storage_dir=str(work), device="cuda",
+                                   **SEG_STREAM, **kw)
+    srec = {"cells": sidx.num_segments}
+    t0 = time.perf_counter()
+    sidx.insert_batch(lv, ls, lt)
+    srec["load_s"] = time.perf_counter() - t0
+    srec["live_per_cell"] = [sub_.live_count for sub_ in sidx.subs]
+    srec["epochs_after_load"] = sidx.epochs()
+    require(max(srec["live_per_cell"]) <= SEG_STREAM["node_capacity"], "a cell outgrew its capacity")
+    t0 = time.perf_counter()
+    srec["generation"] = sidx.save_snapshot()
+    srec["snapshot_s"] = time.perf_counter() - t0
+    mv, ms_, mt = make_dataset(256, DIM, seed=52)
+    epochs = sum(sidx.epochs())
+    t0 = time.perf_counter()
+    acked = sidx.insert_batch(mv, ms_, mt)
+    srec["logged_inserts_per_s"] = 256 / (time.perf_counter() - t0)
+    srec["compactions_during_logged_inserts"] = sum(sidx.epochs()) - epochs
+    rng = np.random.default_rng(53)
+    live = sidx.live_ids()
+    victims = rng.choice(live, len(live) // 100, replace=False)
+    for e in victims:
+        require(sidx.delete(int(e)), f"delete of live id {e} refused")
+    deleted = set(int(e) for e in victims)
+    keep_acked = np.array([e for e in acked if int(e) not in deleted])
+    sq, sqs, sqt = make_queries(BATCH, ls, lt, SELECTIVITIES, 54)
+    seen, sres = [], {}
+    for plan in ("auto", "graph"):
+        reset_counts()
+        t0 = time.perf_counter()
+        ids, d, info = sidx.search(sq, sqs, sqt, k=K, beam=BEAM, plan=plan, return_partial=True)
+        wall = time.perf_counter() - t0
+        require(not sidx.quarantined and not info.degraded, f"the streaming {plan} search degraded")
+        launches[f"stream {plan}"] = dict(ops.LAUNCHES)
+        for name in STREAM_KERNELS:
+            require(launches[f"stream {plan}"][name] > 0,
+                    f"{name} never launched on the segmented streaming {plan} search")
+        seen.append(ids)
+        sres[plan] = {"batch_ms": wall * 1e3, "launches": launches[f"stream {plan}"]}
+        if plan == "auto":
+            want = (ids, d)
+    srec["searches"] = sres
+    g = min(256, len(keep_acked))
+    pick = keep_acked[:g]
+    pos = {int(e): i for i, e in enumerate(acked)}
+    rows_ = np.array([pos[int(e)] for e in pick])
+    ids, d, info = sidx.search(mv[rows_], ms_[rows_], mt[rows_], k=K, beam=BEAM, return_partial=True)
+    require(not info.degraded and np.array_equal(ids[:, 0], pick) and np.all(d[:, 0] == 0.0),
+            "an acknowledged insert did not come back first at distance 0")
+    seen.append(ids)
+    srec["acked_read_back"] = g
+    # recovery from a copy of the directory (the live index's WALs stay open)
+    crash = out / "segmented_crash"
+    shutil.rmtree(crash, ignore_errors=True)
+    shutil.copytree(work, crash)
+    t0 = time.perf_counter()
+    rec, report = recover_segmented(str(crash), device="cuda", **kw)
+    torch.cuda.synchronize()
+    srec["recovery_s"] = time.perf_counter() - t0
+    require(report.quarantined == [] and not rec.quarantined, "recovery quarantined a cell")
+    got = rec.search(sq, sqs, sqt, k=K, beam=BEAM, plan="auto")
+    require(np.array_equal(got[0], want[0]) and np.array_equal(got[1].view(np.int32), want[1].view(np.int32)),
+            "the recovered segmented index's results differ from the live index's")
+    srec["recovery"] = {"records_replayed": report.records_replayed, "generation": report.generation,
+                        "live_count": report.live_count, "bit_equal": True}
+    for w in rec._wals:
+        if w is not None:
+            w.close()
+    del rec
+    # one epoch swap repatches only its cell's slice of the stack
+    stk = sidx.device_stack()
+    before = [dict(stk.part(ci)) for ci in range(stk.num_segments)]
+    hot = int(np.argmax([sub_.live_count for sub_ in sidx.subs]))
+    t0 = time.perf_counter()
+    sidx.subs[hot].compact()
+    srec["swap_s"] = time.perf_counter() - t0
+    for ci in range(stk.num_segments):
+        for key in ("table", "nbr", "labels", "gids"):
+            require((stk.part(ci)[key] is before[ci][key]) == (ci != hot),
+                    f"the epoch swap of cell {hot} touched cell {ci}'s {key}")
+    ids, d, info = sidx.search(sq, sqs, sqt, k=K, beam=BEAM, return_partial=True)
+    require(not info.degraded and not sidx.quarantined, "the search after the swap degraded")
+    seen.append(ids)
+    srec["epoch_swap"] = {"cell": hot, "epochs": sidx.epochs(), "segment_local": True}
+    for ids in seen:
+        require(not np.isin(ids, list(deleted)).any(), "a deleted id came back")
+    srec["no_deleted_id"] = True
+    # a corrupt snapshot on a copy: quarantine only when the history is gone
+    bad_dir = out / "segmented_corrupt"
+    shutil.rmtree(bad_dir, ignore_errors=True)
+    shutil.copytree(work, bad_dir)
+    man = read_manifest(str(bad_dir))
+    cell = hot
+    seg_path = segment_dir(str(bad_dir), cell)
+    snap = os.path.join(seg_path, man["segments"][cell]["snapshot"])
+    good = Path(snap).read_bytes()
+    Path(snap).write_bytes(good[:100] + bytes([good[100] ^ 0xFF]) + good[101:])
+    ro = WriteAheadLog(seg_path, sync="never")
+    first = next(iter(ro.replay(after_lsn=0)), None)
+    ro.close()
+    history_lost = first is None or first.lsn != 1
+    rec, report = recover_segmented(str(bad_dir), device="cuda", **kw)
+    require(report.quarantined == ([cell] if history_lost else []),
+            f"the corrupt snapshot gave quarantined={report.quarantined}, history lost: {history_lost}")
+    healed = None
+    if history_lost:
+        require(rec.maybe_rebuild() == {cell: False}, "a rebuild from the corrupt file succeeded")
+        Path(snap).write_bytes(good)
+        rec._q_retry_at[cell] = 0.0
+        healed = rec.maybe_rebuild()
+        require(healed == {cell: True} and not rec.quarantined, "maybe_rebuild did not restore the cell")
+    srec["corrupt_snapshot"] = {"cell": cell, "history_lost": history_lost,
+                                "quarantined": report.quarantined, "rebuilt": healed,
+                                "reason": report.segments[cell].reason}
+    for w in rec._wals:
+        if w is not None:
+            w.close()
+    for w in sidx._wals:
+        if w is not None:
+            w.close()
+    del rec, sidx
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(crash, ignore_errors=True)
+    shutil.rmtree(bad_dir, ignore_errors=True)
+    emit({"segmented_stream": srec})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=FULL_N, help="corpus size")
@@ -2234,6 +2731,13 @@ def main(argv=None) -> int:
     RECORD["launches_by_path"]["serve"] = serve_launches
     del stream_idx
 
+    # 13. the segmented tier: routed worklists over a flat segment stack, its
+    # sharded form and the segmented streaming tier with its manifest
+    t0 = time.perf_counter()
+    seg_launches = segmented_phase(n, vecs, s, t, out)
+    RECORD["segmented_s"] = time.perf_counter() - t0
+    RECORD["launches_by_path"]["segmented"] = seg_launches
+
     # kernel -> (source, the TPU kernel's pallas_call, the path its launches count on)
     replaces = {
         "filter_dist_gather_packed": ("src/repro_torch/kernels/csrc/filter_dist.cu",
@@ -2263,6 +2767,7 @@ def main(argv=None) -> int:
                                 sum(stream_launches[p][name] for p in ("auto", "graph", "wide"))),
             "serve_launches": (serve_launches["unfused"][name] if name == "filter_dist" else
                                serve_launches["auto/all_gather"][name]),
+            "segmented_launches": seg_launches["unfused" if name == "filter_dist" else "auto"][name],
             "ok": True,
         })
     RECORD["seconds"] = time.perf_counter() - t_all

@@ -20,6 +20,7 @@ from repro_torch.exec.executor import (
     mask_entry_points,
     planned_exec_core,
     planned_graph_from_numpy,
+    worklist_exec_core,
 )
 
 __all__ = [
@@ -39,4 +40,5 @@ __all__ = [
     "plan_queries",
     "planned_graph_from_numpy",
     "planned_exec_core",
+    "worklist_exec_core",
 ]

@@ -26,7 +26,9 @@ layer's exports with the estimator attached.
 ``combine_stats``: each sees the rows planned elsewhere as masked (ep = -1,
 zero work, exact-zero counters), and BRUTE_VALID rows stay all-zero.
 
-Not ported yet (ROADMAP A10): the segmented tier's ``worklist_exec_core``.
+``worklist_exec_core`` is the segmented tier's one dispatch: the planned
+executor over a worklist of (query, segment) pairs on a flat
+``SegmentStack``, folded per query by one ``ops.topk_merge``.
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ from repro_torch.exec.plan import (
     default_planner_config,
     plan_queries,
 )
-from repro_torch.obs.stats import combine_stats, stats_to_host
+from repro_torch.kernels import ops
+from repro_torch.obs.stats import SearchStats, combine_stats, stats_to_host
 from repro_torch.search.batched import LOOP_BLOCK, prepare_states_extended, search_core
 from repro_torch.search.device_graph import device_graph_from_numpy, export_device_graph
 
@@ -113,6 +116,100 @@ def planned_exec_core(
     if stats:
         return ids, d, combine_stats(out_g[2], out_w[2])
     return ids, d
+
+
+def worklist_exec_core(
+    table: torch.Tensor,      # [S·node_cap, D] flat stacked storage
+    nbr: torch.Tensor,        # [S·node_cap, E] int32, PRE-OFFSET by segment
+                              # base (``SegmentStack``): traversal stays
+                              # inside each row's segment
+    labels: torch.Tensor,     # [S·node_cap, E, 2|4] segment-local rectangles
+    gid_table: torch.Tensor,  # [S·node_cap] int32 flat node -> global object
+                              # id (-1 on capacity padding rows)
+    q: torch.Tensor,          # [B, D] f32, the original query batch
+    qid: torch.Tensor,        # [W] int32 query row per work item (== B marks
+                              # bucket padding, dropped by the scatter)
+    seg_ids: torch.Tensor,    # [W] int32 segment per work item (0 on padding)
+    states: torch.Tensor,     # [W, 2] int32 segment-local canonical states
+    ep_graph: torch.Tensor,   # [W] int32 segment-LOCAL entry ids (-1 masked)
+    ep_wide: torch.Tensor,    # [W] int32
+    bf_ids: torch.Tensor,     # [W, V] int32 segment-local brute ids (-1 pad)
+    plans: torch.Tensor,      # [W] int32 QueryPlan values
+    *,
+    k: int,
+    beam: int,
+    wide_beam: int,
+    max_iters: int,
+    wide_max_iters: int,
+    expand: int = 1,
+    wide_expand: int = 1,
+    norms: torch.Tensor,
+    scales: torch.Tensor | None = None,
+    fused: bool = True,
+    block: int = LOOP_BLOCK,
+    stats: bool = False,
+    node_cap: int,
+    n_sentinel: int,
+) -> Tuple[torch.Tensor, ...]:
+    """One dispatch for a whole routed-segment worklist — ``(ids [B, k]
+    int32 global, d [B, k])``, with ``stats`` a ``[B]`` ``SearchStats`` last.
+
+    Each work item is one (query, segment) pair: its entry points and brute
+    ids are offset to the flat row space, the planned executor runs over the
+    ``[W]`` worklist, results map through ``gid_table`` and scatter into
+    ``[B, S, k]`` (unrouted slots +inf / -1), and ONE ``ops.topk_merge`` over
+    the segment-major ``[B, S·k]`` block folds them. That equals the
+    per-segment sequential fold because global ids are unique across
+    segments and the merge breaks ties by arrival order. Padding items
+    (``qid == B``) scatter into a spare row that is dropped.
+
+    With ``stats`` each worklist row's counters add into its query row (a
+    query's per-segment searches are independent, so the sum equals the
+    loop's ``combine_stats``); ``hit_max_iters`` is "any segment hit the
+    cap", the hop tallies stay batch-summed."""
+    B = q.shape[0]
+    n_flat = table.shape[0]
+    S = n_flat // node_cap
+    base = seg_ids.to(torch.int32) * node_cap
+    ep_g = torch.where(ep_graph >= 0, ep_graph + base, -1).to(torch.int32)
+    ep_w = torch.where(ep_wide >= 0, ep_wide + base, -1).to(torch.int32)
+    bf = torch.where(bf_ids >= 0, bf_ids + base[:, None], -1).to(torch.int32)
+    q_w = q[qid.clamp(0, B - 1).long()]
+    out = planned_exec_core(
+        table, nbr, labels, q_w, states, ep_g, ep_w, bf, plans,
+        k=k, beam=beam, wide_beam=wide_beam, max_iters=max_iters,
+        wide_max_iters=wide_max_iters, expand=expand, wide_expand=wide_expand,
+        norms=norms, scales=scales, fused=fused, block=block, stats=stats,
+    )
+    ids_f, d_w = out[0], out[1]
+    glob = torch.where(ids_f >= 0, gid_table[ids_f.clamp(0, n_flat - 1).long()],
+                       -1).to(torch.int32)
+    row, seg = qid.long(), seg_ids.long()
+    sc_d = torch.full((B + 1, S, k), float("inf"), dtype=torch.float32, device=q.device)
+    sc_i = torch.full((B + 1, S, k), -1, dtype=torch.int32, device=q.device)
+    sc_d[row, seg] = d_w
+    sc_i[row, seg] = glob
+    acc_d = torch.full((B, k), float("inf"), dtype=torch.float32, device=q.device)
+    acc_i = torch.full((B, k), -1, dtype=torch.int32, device=q.device)
+    ids, d = ops.topk_merge(acc_d, acc_i, sc_d[:B].reshape(B, S * k),
+                            sc_i[:B].reshape(B, S * k), n=n_sentinel)
+    if not stats:
+        return ids, d
+    st = out[2]
+
+    def scat(v):
+        acc = torch.zeros(B + 1, dtype=torch.int32, device=q.device)
+        return acc.index_add_(0, row, v.to(torch.int32))[:B]
+
+    return ids, d, SearchStats(
+        iters=scat(st.iters), expanded=scat(st.expanded),
+        cand_total=scat(st.cand_total), cand_valid=scat(st.cand_valid),
+        kept=scat(st.kept), visited=scat(st.visited),
+        beam_occupancy=scat(st.beam_occupancy),
+        hit_max_iters=scat(st.hit_max_iters) > 0,
+        delta_valid=scat(st.delta_valid),
+        hop_valid=st.hop_valid, hop_total=st.hop_total,
+    )
 
 
 def mask_entry_points(

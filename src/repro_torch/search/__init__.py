@@ -4,6 +4,7 @@ from repro_torch.search.device_graph import (
     DeltaSegment,
     DeviceGraph,
     DeviceIndex,
+    SegmentStack,
     device_graph_from_numpy,
     export_device_graph,
     pack_labels,
@@ -21,6 +22,7 @@ __all__ = [
     "DeltaSegment",
     "DeviceGraph",
     "DeviceIndex",
+    "SegmentStack",
     "batched_udg_search",
     "broad_batched_search",
     "device_graph_from_numpy",

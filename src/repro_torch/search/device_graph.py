@@ -27,6 +27,8 @@ for ``fused=False``) the int32 ``[n, E, 4]`` rectangles.
 
 ``device_graph_from_numpy`` rebuilds a ``DeviceGraph`` from another
 export's arrays unchanged, so two implementations can search the same index.
+``SegmentStack`` concatenates uniform-capacity exports into the one flat
+graph the segmented tier's worklist searches (``repro_torch.scale``).
 ``BroadExport`` is the wave constructor's label-ignoring adjacency, and
 ``DeltaSegment`` the streaming index's fixed-capacity view of its delta
 tier (``repro_torch.stream``).
@@ -351,6 +353,146 @@ def device_graph_from_numpy(arrays: dict, *, planner=None, device=None) -> Devic
     dg = DeviceGraph(relation=str(arrays["relation"]), planner=planner, **fields)
     dg.device(device)
     return dg
+
+
+class SegmentStack:
+    """Flat concatenation of uniform-capacity segment exports on one device.
+
+    The segmented tier's worklist scheduler (``repro_torch.scale``) runs any
+    routed-segment mix as one search over one *flat* graph: segment ``i``
+    owns rows ``[i·node_capacity, (i+1)·node_capacity)`` of every stacked
+    view, and each part's neighbour table is **pre-offset** by that base
+    when it is stacked (``nbr + i·node_capacity`` where real, ``-1`` where
+    padding). Adjacency is segment-closed, so the unmodified search core
+    walks the flat graph and every query row stays inside its own segment.
+
+    ``gids`` maps each flat node to its global object id (``-1`` on
+    capacity-padding rows). ``set_segment`` replaces one part and drops only
+    the memoized flat concatenations; every other part keeps the same
+    tensors, so a segment-local epoch swap restages one segment, not the
+    fleet.
+    """
+
+    def __init__(self, *, node_capacity: int, edge_capacity: int, device=None):
+        self.node_capacity = int(node_capacity)
+        self.edge_capacity = int(edge_capacity)
+        self.device = resolve_device(device)
+        self._parts: list = []
+        self._flat: dict = {}
+
+    @property
+    def num_segments(self) -> int:
+        return len(self._parts)
+
+    @property
+    def packed(self) -> bool:
+        return bool(self._parts) and self._parts[0]["labels"].shape[-1] == 2
+
+    @property
+    def quantized(self) -> bool:
+        return bool(self._parts) and self._parts[0]["scales"] is not None
+
+    def part(self, i: int) -> dict:
+        """Segment ``i``'s part (table/scales/norms/nbr/labels/gids)."""
+        return self._parts[i]
+
+    def _make_part(self, si: int, dg: DeviceGraph, gids: np.ndarray) -> dict:
+        di = dg.device(self.device)
+        ncap, ecap = self.node_capacity, self.edge_capacity
+        if di.table.shape[0] != ncap:
+            raise ValueError(
+                f"segment export has {di.table.shape[0]} node rows, "
+                f"stack capacity is {ncap}")
+        if di.nbr.shape[1] != ecap:
+            raise ValueError(
+                f"segment export has edge capacity {di.nbr.shape[1]}, "
+                f"stack capacity is {ecap}")
+        if self._parts:
+            first = self._parts[0]
+            if (di.scales is None) != (first["scales"] is None):
+                raise ValueError("mixed quantized/f32 segments in one stack")
+            if di.labels.shape[-1] != first["labels"].shape[-1]:
+                raise ValueError("mixed label layouts in one stack")
+        g = np.full(ncap, -1, dtype=np.int32)
+        gids = np.asarray(gids).reshape(-1)
+        g[: gids.shape[0]] = gids.astype(np.int32)
+        return {
+            "table": di.table,
+            "scales": di.scales,
+            "norms": di.norms,
+            "nbr": torch.where(di.nbr >= 0, di.nbr + si * ncap, -1).to(torch.int32),
+            "labels": di.labels,
+            "gids": torch.from_numpy(g).to(self.device),
+        }
+
+    def append_segment(self, dg: DeviceGraph, gids: np.ndarray) -> None:
+        """Append one segment's export as the next slice."""
+        self._parts.append(self._make_part(len(self._parts), dg, gids))
+        self._flat.clear()
+
+    def set_segment(self, i: int, dg: DeviceGraph, gids: np.ndarray) -> None:
+        """Replace segment ``i``'s part (an epoch swap); every other part's
+        tensors are untouched, only the flat memos rebuild."""
+        self._parts[i] = self._make_part(i, dg, gids)
+        self._flat.clear()
+
+    def blank_segment(self, i: int) -> None:
+        """Scrub segment ``i``'s slice: zeroed table, norms, scales and
+        labels, empty adjacency, every gid -1, in the same shapes and
+        dtypes. Quarantine uses it so a poisoned segment's rows never
+        surface: a traversal landing there finds no edges and gid -1."""
+        old = self._parts[i]
+        self._parts[i] = {
+            "table": torch.zeros_like(old["table"]),
+            "scales": None if old["scales"] is None else torch.zeros_like(old["scales"]),
+            "norms": torch.zeros_like(old["norms"]),
+            "nbr": torch.full_like(old["nbr"], -1),
+            "labels": torch.zeros_like(old["labels"]),
+            "gids": torch.full_like(old["gids"], -1),
+        }
+        self._flat.clear()
+
+    def flat(self, key: str):
+        """Memoized flat ``[S·node_capacity, ...]`` concatenation of one
+        component (``table``/``scales``/``norms``/``nbr``/``labels``/
+        ``labels_i32``/``gids``); ``scales`` is ``None`` on an f32 stack."""
+        out = self._flat.get(key)
+        if out is None:
+            if key == "labels_i32":
+                parts = [unpack_labels_device(p["labels"]) if p["labels"].shape[-1] == 2
+                         else p["labels"] for p in self._parts]
+            else:
+                parts = [p[key] for p in self._parts]
+                if any(v is None for v in parts):
+                    return None
+            out = self._flat[key] = torch.cat(parts, dim=0)
+        return out
+
+    def flat_labels(self, *, fused: bool = True, packed: bool | None = None):
+        """The flat label view under ``DeviceGraph.serving_labels``'s rule:
+        the packed words when the stack has them and the search runs
+        fused, else the int32 ``[.., E, 4]`` rectangles."""
+        if packed is None:
+            packed = self.packed
+        elif packed and not self.packed:
+            raise ValueError("packed=True but the stack carries no packed labels")
+        if fused and packed:
+            return self.flat("labels")
+        return self.flat("labels_i32") if self.packed else self.flat("labels")
+
+    def nbytes_by_component(self) -> dict:
+        """Device bytes of each stacked component over every part (the flat
+        memos, which copy them, are not counted)."""
+        out: dict = {}
+        for p in self._parts:
+            for key in ("table", "scales", "norms", "nbr", "labels", "gids"):
+                v = p.get(key)
+                if v is not None:
+                    out[key] = out.get(key, 0) + v.numel() * v.element_size()
+        return out
+
+    def nbytes(self) -> int:
+        return sum(self.nbytes_by_component().values())
 
 
 class BroadExport:

@@ -1,7 +1,7 @@
 """Sharded UDG serving: per-shard search + cross-shard merge, request
 batching, admission control, and straggler mitigation (the JAX package's
-``repro.serve`` on torch; the segmented tier's ``segments_to_sharded_index``
-is not ported yet)."""
+``repro.serve`` on torch, with the segmented tier's
+``segments_to_sharded_index``)."""
 from repro_torch.serve.admission import (
     AdmissionConfig,
     AdmissionController,
@@ -18,6 +18,8 @@ from repro_torch.serve.distributed import (
     make_streaming_serving_step,
     merge_partial_results,
     plan_sharded_batch,
+    remap_shard_ids,
+    segments_to_sharded_index,
     serve_batch,
     serve_streaming_batch,
     sharded_index_from_numpy,
@@ -39,6 +41,8 @@ __all__ = [
     "make_streaming_serving_step",
     "merge_partial_results",
     "plan_sharded_batch",
+    "remap_shard_ids",
+    "segments_to_sharded_index",
     "serve_batch",
     "serve_streaming_batch",
     "sharded_index_from_numpy",

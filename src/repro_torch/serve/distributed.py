@@ -37,8 +37,9 @@ per-shard searches launch the kernels through ``ops`` (B1, B2; B3 on
 BRUTE_VALID rows and the delta tier; B4 on ``fused=False``); on CPU tensors
 their plain versions run.
 
-Not ported yet (ROADMAP A10): ``segments_to_sharded_index`` and
-``_prime_device_from_stack``, which take a segmented index.
+``segments_to_sharded_index`` stacks a segmented index
+(``repro_torch.scale``) into this layout, one segment a shard, and primes
+its device bundle from the segment stack already on the device.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ from repro_torch.exec import (
     plan_queries,
     planned_exec_core,
 )
+from repro_torch.kernels.ref import warp_dot
 from repro_torch.obs.stats import PER_QUERY_FIELDS as _PER_QUERY_STAT_FIELDS
 from repro_torch.obs.stats import per_query_dict
 from repro_torch.search.batched import search_core
@@ -227,6 +229,104 @@ def build_sharded_index(
         num_y=num_y, entry_node=ent, entry_y_rank=enty, relation=relation,
         n_local=n_l, planners=planners,
     )
+
+
+def segments_to_sharded_index(segidx) -> tuple:
+    """Stack a ``repro_torch.scale.SegmentedIndex`` into the sharded serving
+    layout, one segment a shard. Returns ``(sharded, id_map)``.
+
+    The segments share one ``node_capacity``/``edge_capacity``/label layout
+    (the segmented build's uniform export), so the stack needs no re-padding
+    beyond the canonical grids. Two differences from
+    ``build_sharded_index``'s round-robin partition:
+
+    * membership is dominance-driven, so the serving step's synthetic ids
+      (``shard · n_l + local``) are not object ids: ``id_map [S, n_l]``
+      int64 (-1 on padding rows) and ``remap_shard_ids`` recover them;
+    * int8-resident segments stack their *f32* rows (``ShardedIndex``
+      carries no scales), with norms recomputed from those rows. The port
+      sums them in the scorers' f64 lane order (``ref.warp_dot``), as its
+      export does, where the reference takes an f32 einsum.
+
+    Quarantined segments serve as provably empty shards: no entry points,
+    an n = 0 estimator (every count bound is 0) and a -1 ``id_map`` row.
+    The device bundle is primed from the index's segment stack
+    (``_prime_device_from_stack``), on the index's device."""
+    dgs = [seg.dg for seg in segidx.segments]
+    S = len(dgs)
+    n_l = int(segidx.node_capacity)
+    E = max(dg.max_degree for dg in dgs)
+    ux = max(dg.U_X.shape[0] for dg in dgs)
+    uy = max(dg.U_Y.shape[0] for dg in dgs)
+    vec = np.stack([np.asarray(dg.vectors, np.float32) for dg in dgs])
+    nbr = np.stack([_padE(dg.nbr, E, -1) for dg in dgs])
+    if all(dg.plabels is not None for dg in dgs):
+        lab = np.stack([_padE(dg.plabels, E, 0) for dg in dgs])
+    else:
+        lab = np.stack([_padE(dg.labels_i32(), E, 0) for dg in dgs])
+    rows = torch.from_numpy(vec)
+    nrm = warp_dot(rows, rows).numpy()
+    UX = np.full((S, ux), np.inf, np.float32)
+    UY = np.full((S, uy), np.inf, np.float32)
+    ent = np.full((S, ux), -1, np.int32)
+    enty = np.full((S, ux), np.iinfo(np.int32).max, np.int32)
+    num_y = np.zeros(S, np.int32)
+    id_map = np.full((S, n_l), -1, np.int64)
+    for i, dg in enumerate(dgs):
+        kx = dg.U_X.shape[0]
+        UX[i, :kx] = dg.U_X.astype(np.float32)
+        UY[i, : dg.U_Y.shape[0]] = dg.U_Y.astype(np.float32)
+        num_y[i] = dg.U_Y.shape[0]
+        ent[i, :kx] = dg.entry_node
+        enty[i, :kx] = dg.entry_y_rank
+        ids = segidx.segments[i].ids
+        id_map[i, : ids.shape[0]] = ids
+    planners = [dg.planner for dg in dgs]
+    for si in sorted(segidx.quarantined):
+        ent[si, :] = -1
+        enty[si, :] = np.iinfo(np.int32).max
+        id_map[si, :] = -1
+        p = planners[si]
+        if p is not None:
+            planners[si] = SelectivityEstimator(
+                np.empty(0, np.int64), np.empty(0, np.int64),
+                p.num_x, p.num_y, buckets=p.buckets)
+    sharded = ShardedIndex(
+        vectors=vec, nbr=nbr, labels=lab, norms=nrm, U_X=UX, U_Y=UY,
+        num_y=num_y, entry_node=ent, entry_y_rank=enty,
+        relation=segidx.relation.name, n_local=n_l, planners=planners,
+    )
+    _prime_device_from_stack(sharded, segidx, E=E, lab_shape=lab.shape)
+    return sharded, id_map
+
+
+def _prime_device_from_stack(sharded: ShardedIndex, segidx, *, E, lab_shape) -> None:
+    """Put the sharded device bundle in ``sharded``'s cache, under the key
+    ``ShardedIndex.device(segidx.device)`` reads, with the adjacency and the
+    label table (the two largest components) DERIVED on the device from the
+    segment stack's flat tensors (the adjacency un-offset per shard) instead
+    of staged again from the host. Vectors and norms are staged from the
+    host stack: the sharded form is f32 rows and their norms, which an int8
+    stack does not carry. Skipped when the stack's layout differs from the
+    stacked host arrays (never for a uniform segmented export)."""
+    stack = segidx.device_stack()
+    S, ncap = stack.num_segments, stack.node_capacity
+    if stack.edge_capacity != E or S != sharded.num_shards or ncap != sharded.n_local:
+        return
+    flat_lab = stack.flat("labels")
+    if flat_lab.shape[-1] != lab_shape[-1]:
+        return
+    dev = stack.device
+    base = (torch.arange(S, dtype=torch.int32, device=dev) * ncap)[:, None, None]
+    nbr = stack.flat("nbr").reshape(S, ncap, E)
+    bundle = {
+        "nbr": torch.where(nbr >= 0, nbr - base, -1).to(torch.int32),
+        "labels": flat_lab.reshape(lab_shape),
+    }
+    for name in STACK_FIELDS:
+        if name not in bundle:
+            bundle[name] = _put(getattr(sharded, name), dev)
+    sharded._cache = {("device", str(dev), None): {f: bundle[f] for f in STACK_FIELDS}}
 
 
 def sharded_index_from_numpy(arrays: dict, planner_states=None, *, device=None) -> ShardedIndex:

@@ -28,7 +28,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
-    assert int(out[0]) >= 45                       # every submodule was imported
+    assert int(out[0]) >= 51                       # every submodule was imported
     assert len(out) == 1, f"loaded: {out[1]}"
 
 
@@ -52,7 +52,8 @@ def test_obs_and_stream_import_no_jax_and_nothing_of_repro():
 SERVE = """
 import sys
 import repro_torch.serve, repro_torch.distributed, repro_torch.launch.serve
-from repro_torch.serve import (StreamingServer, build_sharded_index, serve_batch,
+from repro_torch.serve import (StreamingServer, build_sharded_index, remap_shard_ids,
+                               segments_to_sharded_index, serve_batch,
                                serve_streaming_batch, sharded_index_from_numpy)
 from repro_torch.distributed import ShardMesh, make_host_mesh, make_process_mesh
 from repro_torch.launch.serve import main, serve_requests
@@ -64,6 +65,25 @@ print(",".join(bad) or "none")
 def test_serve_distributed_and_launcher_import_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", SERVE], env=env, capture_output=True,
+                         text=True, check=True).stdout.split()
+    assert out == ["none"], f"loaded: {out}"
+
+
+SCALE = """
+import sys
+import repro_torch.scale
+from repro_torch.scale import (SegmentedIndex, SegmentedStreamingIndex, build_segmented_index,
+                               recover_segmented, segmented_index_from_numpy)
+from repro_torch.search import SegmentStack
+from repro_torch.exec import worklist_exec_core
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(",".join(bad) or "none")
+"""
+
+
+def test_scale_imports_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", SCALE], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
     assert out == ["none"], f"loaded: {out}"
 
