@@ -96,7 +96,24 @@ kernel launch counts to 0 just before it and reads them just after:
     with its WALs and manifest: B1-B3 on its searches, acknowledged inserts
     read back, ``recover_segmented`` bit-equal, a segment-local stack patch,
     a corrupt snapshot quarantined and rebuilt. A quarantine or a degraded
-    answer in a step that injects no fault fails the run.
+    answer in a step that injects no fault fails the run;
+14. fault injection (``fault_phase``): ``repro_torch.fault.chaos.run_chaos``
+    on the card for seeds 0-4 (tiny) and seed 0 at its default sizes, every
+    phase ok, B3 launched, seed 0 equal to the CPU run in every field the
+    seed determines; the full-width step, taken in phases 11 and 12 before
+    their index and server are dropped: ``poison_vector`` at d 768 and
+    non-finite interval endpoints rejected by ``submit`` with no launch, two
+    injected ``build_epoch`` failures under the serving phase's compaction
+    (the old epoch answering a 4096-query auto batch bit for bit between
+    them, B1-B3 launched) then its clean swap, and the streaming phase's
+    directory with a torn WAL tail recovered bit for bit against a clean
+    cut of the same record;
+15. baselines (``baselines_phase``): ``PreFilter`` over the whole corpus
+    equal to the ground truth and to the card's brute batch (B3) under the
+    tie rule on 1024 auto and 1024 brute queries; PostFilter, ACORN and
+    Hi-PNG at ``bench_main_search.py``'s parameters on 2048 rows beside UDG
+    on the card: valid ids only, recall@10 by selectivity, build seconds,
+    host ms a query.
 
 Prints one JSON object per line; the line before the last is the kernel
 table and the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -112,6 +129,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -132,6 +150,7 @@ from repro_torch.data.workloads import QuerySet, recall_at_k  # noqa: E402
 from repro_torch.core import EntryTable, build_udg  # noqa: E402
 from repro_torch.exec import execute_batch, export_planned_graph  # noqa: E402
 from repro_torch.exec.plan import PLAN_NAMES, QueryPlan, default_planner_config  # noqa: E402
+from repro_torch.fault import FaultInjector, FaultSpec, InjectedFault, poison_vector, truncate_file  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.search import batched as search_mod  # noqa: E402
 from repro_torch.search import batched_udg_search  # noqa: E402
@@ -154,6 +173,8 @@ SLEEP_CYCLES_PER_CALL = 400_000   # about 0.2 ms of host time per queued call
 RECORD: dict = {}
 FORMS: dict = {}   # name -> another build of filter_dist.cu (--form)
 MERGE_FORMS: dict = {}   # name -> another build of beam_merge.cu (--form)
+FAULT: dict = {}   # the fault phase's full-width step, taken in the streaming and serving phases
+FAULT_WORK = ROOT / "build" / "fault_work"
 
 
 def require(ok, what: str) -> None:
@@ -1338,7 +1359,6 @@ def stream_phase(n: int, work: Path) -> tuple:
        served (the pre-swap results, bit for bit), then the swap: the delta
        drained, the tombstones cleared, every device shape and each kernel
        library unchanged, recall over the new live set."""
-    import shutil
     import threading
 
     from repro_torch.core.predicates import get_relation
@@ -1454,6 +1474,10 @@ def stream_phase(n: int, work: Path) -> tuple:
     # 6. recovery
     wal.close()
     idx.attach_wal(None)
+    # the directory as a crash leaves it, torn later by the fault phase
+    shutil.rmtree(FAULT_WORK, ignore_errors=True)
+    copy_durable(work, FAULT_WORK / "stream_dir")
+    FAULT.update(stream_kw=kw, deleted=deleted)
     t0 = time.perf_counter()
     rec, rep = recover(str(work), dim=DIM, relation=CONFIG.relation, device="cuda", **kw)
     torch.cuda.synchronize()
@@ -1965,8 +1989,14 @@ def serve_phase(n: int, vecs, s, t, qv, s_q, t_q, gt_auto, stream_idx, stream_q,
     stream_idx.policy = CompactionPolicy(max_delta_fraction=0.005, min_mutations=64)
     extra = max(64, stream_idx.live_count // 100)
     mv, ms_, mt = make_dataset(extra, DIM, seed=21)
-    stream_idx.insert_batch(mv, ms_, mt)
+    acked = stream_idx.insert_batch(mv, ms_, mt)
     srv = StreamingServer(stream_idx, batch_size=BATCH, k=K, beam=BEAM, timeout_s=0.0)
+    # the fault phase's full-width step on this server: poison, then two
+    # injected build failures before the clean swap below
+    FAULT["poison"] = poison_step(srv, stream_q)
+    inj = FaultInjector(FAULT_SEED).add("compaction.build", FaultSpec("error", max_hits=2))
+    undo = inj.wrap_method(stream_idx, "build_epoch", "compaction.build")
+    FAULT["compaction"] = failed_compactions(srv, inj, stream_q)
     epoch, delta_live = stream_idx.epoch, stream_idx._delta.live_count
     t0 = time.perf_counter()
     require(srv.maybe_compact_async(), "the server started no compaction")
@@ -1982,6 +2012,7 @@ def serve_phase(n: int, vecs, s, t, qv, s_q, t_q, gt_auto, stream_idx, stream_q,
             break
     srv.join_compaction()
     wall = time.perf_counter() - t0
+    undo()
     require(stream_idx.epoch == epoch + 1 and len(srv.compactions) == 1, "the compaction did not swap")
     require(srv.compactions[0].delta_drained == delta_live and stream_idx._delta.live_count == 0,
             "the swap did not drain the delta")
@@ -1994,6 +2025,7 @@ def serve_phase(n: int, vecs, s, t, qv, s_q, t_q, gt_auto, stream_idx, stream_q,
     srv_res["compaction"] = {**dataclasses.asdict(srv.compactions[0]), "wall_s": wall,
                              "batches_served_during_build": served, "inserted_before": extra}
     emit({"streaming_server": srv_res})
+    FAULT["compaction"].update(swap_after_failures(srv, inj, acked, (mv, ms_, mt), want[0]))
 
     # 6. the sharded streaming index: host merge against the stacked step
     sidx = ShardedStreamingIndex(DIM, CONFIG.relation, 2, device="cuda", **SHARDED_STREAM)
@@ -2119,8 +2151,6 @@ def segmented_phase(n: int, vecs, s, t, out: Path) -> dict:
 
     No step that injects no fault may quarantine a segment or report a
     degraded answer."""
-    import shutil
-
     from repro_torch.core.predicates import DominanceSpace, get_relation
     from repro_torch.distributed import make_host_mesh
     from repro_torch.scale import (
@@ -2525,6 +2555,386 @@ def segmented_phase(n: int, vecs, s, t, out: Path) -> dict:
     return launches
 
 
+FAULT_SEED = 0                # the full-width step's injector and torn-tail draw
+CHAOS_SEEDS = range(5)        # with the rotation of relations, every crash point x relation pair
+CHAOS_PHASES = ("compaction", "poison", "overload", "crash_recovery", "segmented")
+# the fields of a chaos summary that are functions of the seed (wall-clock fields left out)
+CHAOS_FIELDS = {
+    "compaction": ("injected_failures", "epoch_recovered"),
+    "poison": ("attempts", "rejected"),
+    "overload": ("submitted", "shed", "answered", "max_queue_depth"),
+    "crash_recovery": ("cut_bytes", "torn_size", "snapshot_found", "truncated", "tail_replayed",
+                       "parity"),
+}
+CHAOS_RUN_FIELDS = ("point", "relation", "cut_bytes", "replayed", "corrupt_offset", "victim",
+                    "orphans", "degraded", "rebuild_blocked", "heal_ok")
+
+
+def copy_durable(src: Path, dst: Path) -> None:
+    """A copy of a streaming durability directory: the snapshot hard-linked
+    (recovery only reads it), every WAL segment copied (recovery truncates
+    a torn tail in place)."""
+    from repro_torch.stream.wal import SNAPSHOT_NAME
+
+    dst.mkdir(parents=True)
+    for f in src.iterdir():
+        (os.link if f.name == SNAPSHOT_NAME else shutil.copy2)(f, dst / f.name)
+
+
+def poison_step(srv, q) -> dict:
+    """Non-finite queries at d 768 against a ``StreamingServer``:
+    ``poison_vector`` with NaN, +Inf and -Inf, and a clean vector with a
+    NaN and an Inf interval endpoint, each rejected by ``submit`` with
+    ``ValueError``, with no kernel launched and nothing queued; then a clean
+    query is answered."""
+    qv, s_q, t_q = q
+    cases = [(poison_vector(DIM, kind=kind, seed=i), s_q[0], t_q[0])
+             for i, kind in enumerate(("nan", "inf", "-inf"), 1)]
+    cases += [(qv[0], float("nan"), t_q[0]), (qv[0], s_q[0], float("inf"))]
+    launches, pending = dict(ops.LAUNCHES), srv.batcher.pending
+    rejected = 0
+    for vec, sq, tq in cases:
+        try:
+            srv.submit(vec, sq, tq)
+        except ValueError:
+            rejected += 1
+    require(rejected == len(cases), f"{len(cases) - rejected} poisoned submits were accepted")
+    require(dict(ops.LAUNCHES) == launches and srv.batcher.pending == pending,
+            "a rejected submit launched a kernel or queued a request")
+    rid = srv.submit(qv[0], s_q[0], t_q[0])
+    out = srv.step(force=True)
+    require(rid in out and np.all(out[rid][0] >= 0) and np.all(np.isfinite(out[rid][1])),
+            "the clean query after the poisoned ones went unanswered")
+    return {"attempts": len(cases), "rejected": rejected, "launches_unchanged": True,
+            "clean_answered": True}
+
+
+def failed_compactions(srv, inj, q) -> dict:
+    """Two injected ``build_epoch`` failures on the server's compaction
+    worker (the injector's error fires before the build's body), each reaped
+    into a backoff; between attempts the old epoch answers a fixed
+    4096-query auto batch bit for bit, with B1, B2 and B3 launched. Returns
+    once the second backoff has passed, so the next ``maybe_compact_async``
+    starts the clean build."""
+    idx = srv.index
+    qv, s_q, t_q = (a[:BATCH] for a in q)
+    epoch = idx.epoch
+    want = idx.search(qv, s_q, t_q, k=K, beam=BEAM, plan="auto")
+    reset_counts()
+    attempts, backoff_s, batches = 0, [], 0
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 120.0
+    while True:
+        fails = srv._fail_count
+        if srv.maybe_compact_async():
+            attempts += 1
+            srv._worker.join()
+        elif srv._fail_count > fails:          # a failure reaped: backoff
+            backoff_s.append(srv._retry_at - time.monotonic())
+            if srv._fail_count == 2:
+                break
+        ids, d = idx.search(qv, s_q, t_q, k=K, beam=BEAM, plan="auto")
+        batches += 1
+        require(idx.epoch == epoch and np.array_equal(ids, want[0]) and
+                np.array_equal(d.view(np.int32), want[1].view(np.int32)),
+                "the old epoch's answers changed between failed compactions")
+        require(time.monotonic() < deadline, "the injected compaction failures did not fire")
+    launches = dict(ops.LAUNCHES)
+    for name in STREAM_KERNELS:
+        require(launches[name] > 0, f"{name} never launched between the failed compactions")
+    failures = [f for f in inj.fired if f[0] == "compaction.build"]
+    require(len(failures) == 2 and attempts == 2 and idx.epoch == epoch and
+            isinstance(srv.last_compaction_error, InjectedFault),
+            f"expected two injected failures: fired {inj.fired}, attempts {attempts}")
+    failed_s = time.perf_counter() - t0
+    time.sleep(max(0.0, srv._retry_at - time.monotonic()))
+    return {"injected_failures": len(failures), "attempts": attempts, "backoff_s": backoff_s,
+            "old_epoch_batches": batches, "old_epoch_bit_equal": True, "launches": launches,
+            "failed_attempts_s": failed_s}
+
+
+def swap_after_failures(srv, inj, acked, rows, served_ids) -> dict:
+    """After the clean swap that follows the failures: the fault healed
+    (no third firing, no error left), the acknowledged inserts come back
+    first, and no id the streaming phase deleted is returned."""
+    idx = srv.index
+    mv, ms_, mt = rows
+    g = min(256, len(acked))
+    ids, d = idx.search(mv[:g], ms_[:g], mt[:g], k=K, beam=BEAM, plan="auto")
+    norms = np.einsum("ij,ij->i", mv[:g], mv[:g])
+    require(np.array_equal(ids[:, 0], acked[:g]) and np.all(np.abs(d[:, 0]) <= 1e-5 * norms),
+            "an acknowledged insert did not come back first after the swap")
+    require(len(inj.fired) == 2 and srv.last_compaction_error is None and srv._fail_count == 0,
+            "the compaction fault did not heal after the swap")
+    deleted = list(FAULT["deleted"])
+    require(not np.isin(ids, deleted).any() and not np.isin(served_ids, deleted).any(),
+            "a deleted id came back after the swap")
+    return {"swap_s": srv.compactions[0].build_seconds + srv.compactions[0].swap_seconds,
+            "last_compaction_error": None, "acked_read_back": g,
+            "max_self_distance": float(np.abs(d[:, 0]).max()), "no_deleted_id": True}
+
+
+def torn_tail(q) -> dict:
+    """Two copies of the streaming phase's durability directory (its
+    snapshot and ``sync="always"`` WAL): ``FAULT_SEED``'s 1-12 bytes torn
+    off the last record of one, the other cut cleanly where that record
+    starts. ``recover`` of the torn copy on the card reports the tear,
+    replays every record but the torn one and answers a 4096-query auto
+    batch bit for bit as the recovery of the clean cut does."""
+    from repro_torch.stream import WriteAheadLog, recover
+    from repro_torch.stream.wal import KIND_INSERT, encode_delete, encode_insert
+
+    stash = FAULT_WORK / "stream_dir"
+    ro = WriteAheadLog(str(stash), sync="never")
+    records = list(ro.replay(after_lsn=0))
+    seg = max(f for f in ro.segments() if os.path.getsize(stash / f) > 0)
+    ro.close()
+    last = records[-1]
+    frame = len(encode_insert(last.lsn, last.ext_id, last.s, last.t, last.vec)
+                if last.kind == KIND_INSERT else encode_delete(last.lsn, last.ext_id))
+    size = os.path.getsize(stash / seg)
+    cut = int(np.random.default_rng(FAULT_SEED).integers(1, 13))
+    qv, s_q, t_q = (a[:BATCH] for a in q)
+    res, answers = {"records": len(records), "cut_bytes": cut, "frame_bytes": frame}, {}
+    for name, keep in (("torn", size - cut), ("clean", size - frame)):
+        work = FAULT_WORK / name
+        copy_durable(stash, work)
+        truncate_file(str(work / seg), keep)
+        t0 = time.perf_counter()
+        rec, rep = recover(str(work), dim=DIM, relation=CONFIG.relation, device="cuda",
+                           **FAULT["stream_kw"])
+        torch.cuda.synchronize()
+        res[name] = {"recovery_s": time.perf_counter() - t0, "truncated": rep.truncated,
+                     "records_replayed": rep.records_replayed, "live_count": rep.live_count}
+        answers[name] = rec.search(qv, s_q, t_q, k=K, beam=BEAM, plan="auto")
+        rec._wal.close()
+        del rec
+    require(res["torn"]["truncated"] and not res["clean"]["truncated"],
+            f"the torn tail was not reported (or the clean cut was): {res}")
+    require(res["torn"]["records_replayed"] == res["clean"]["records_replayed"] == len(records) - 1,
+            f"recovery did not replay every record but the torn one: {res}")
+    (ti, td), (ci, cd) = answers["torn"], answers["clean"]
+    require(np.array_equal(ti, ci) and np.array_equal(td.view(np.int32), cd.view(np.int32)),
+            "the torn tail's recovery answers differently from the clean cut's")
+    res["bit_equal"] = True
+    return res
+
+
+def chaos_seeded(summary: dict) -> dict:
+    """The fields of a chaos summary that are functions of its seed."""
+    out = {p: {f: summary[p][f] for f in fields} for p, fields in CHAOS_FIELDS.items()}
+    out["segmented"] = [{f: r[f] for f in CHAOS_RUN_FIELDS if f in r} for r in summary["segmented"]["runs"]]
+    out["faults_fired"] = summary["faults_fired"]
+    return out
+
+
+def chaos_runs() -> tuple:
+    """``run_chaos(seed, tiny=True, device="cuda")`` for ``CHAOS_SEEDS`` and
+    ``run_chaos(0, tiny=False, device="cuda")``, at the module's own sizes
+    (d 8; node capacity 256 or 1024): every phase ok, B3 launched
+    (BRUTE_VALID plans and delta scans), seed 0's seed-determined fields
+    equal to the CPU run's. Returns the report and the runs' launches."""
+    from repro_torch.fault.chaos import run_chaos
+
+    reset_counts()
+    t0 = time.perf_counter()
+    runs = {f"tiny/{seed}": run_chaos(seed, tiny=True, device="cuda") for seed in CHAOS_SEEDS}
+    runs["full/0"] = run_chaos(0, tiny=False, device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for name, summary in runs.items():
+        for phase in CHAOS_PHASES:
+            require(summary[phase]["ok"], f"chaos {name}: {phase} failed: {summary[phase]}")
+    require(launches["filter_dist_gather"] > 0, "B3 never launched in the chaos runs")
+    t0 = time.perf_counter()
+    cpu = run_chaos(0, tiny=True, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    require(cpu["ok"] and chaos_seeded(runs["tiny/0"]) == chaos_seeded(cpu),
+            f"chaos seed 0 on the card differs from the CPU: {chaos_seeded(runs['tiny/0'])} "
+            f"against {chaos_seeded(cpu)}")
+    return {
+        "ok": {name: s["ok"] for name, s in runs.items()}, "seconds": seconds, "cpu_seed0_s": cpu_s,
+        "seed0_equals_cpu": True, "launches": launches,
+        "faults_fired": {name: s["faults_fired"] for name, s in runs.items()},
+        "history_whole": {name: [r["point"] for r in s["segmented"]["runs"] if r.get("history_whole")]
+                          for name, s in runs.items()},
+        "wall_clock": {name: {"backoff_waits": s["compaction"]["backoff_waits"],
+                              "recovery_seconds": s["crash_recovery"]["recovery_seconds"]}
+                       for name, s in runs.items()},
+        "seed0": chaos_seeded(runs["tiny/0"])}, launches
+
+
+def fault_phase(stream_q) -> dict:
+    """Fault injection (``repro_torch.fault``) on the card; returns the
+    kernel launches of the chaos runs.
+
+    1. the chaos scenario at its own sizes (``chaos_runs``);
+    2. the full-width step on the streaming phase's index and the serving
+       phase's ``StreamingServer``, taken in those phases before they are
+       dropped (``poison_step``, ``failed_compactions``,
+       ``swap_after_failures``), and here the torn WAL tail of the
+       streaming phase's directory, recovered bit for bit against its clean
+       cut (``torn_tail``)."""
+    for key in ("poison", "compaction"):
+        require(key in FAULT, f"the full-width {key} step did not run in the serving phase")
+    chaos, launches = chaos_runs()
+    t0 = time.perf_counter()
+    torn = torn_tail(stream_q)
+    emit({"fault": {
+        "chaos": chaos,
+        "full_width": {"d": DIM, "poison": FAULT["poison"], "compaction": FAULT["compaction"],
+                       "torn_tail": torn, "torn_tail_s": time.perf_counter() - t0},
+        "launches": {"chaos": launches, "full_width": FAULT["compaction"]["launches"]}}})
+    shutil.rmtree(FAULT_WORK, ignore_errors=True)
+    return launches
+
+
+BASELINE_ROWS = 2048          # the graph baselines' rows: single-threaded Python builds
+BASELINE_QUERIES = 256
+BASELINE_EF = 64
+PREFILTER_QUERIES = 1024
+BASELINE_KW = {               # benchmarks/bench_main_search.py's parameters
+    "postfilter": dict(M=16, ef_construction=64),
+    "acorn": dict(M=16, gamma=6, ef_construction=64),
+    "hipng": dict(M=12, ef_construction=48, leaf_size=256, min_graph_size=128),
+}
+
+
+def host_search(method, qv, s_q, t_q, ef: int) -> tuple:
+    """One baseline over a query batch, a query at a time on the host: ids
+    and distances padded to k (-1, +inf) and the mean ms a query."""
+    ids = np.full((len(qv), K), -1, dtype=np.int64)
+    d = np.full((len(qv), K), np.inf, dtype=np.float32)
+    t0 = time.perf_counter()
+    for i in range(len(qv)):
+        got_i, got_d = method.search(qv[i], float(s_q[i]), float(t_q[i]), K, ef)
+        ids[i, :len(got_i)], d[i, :len(got_d)] = got_i, got_d
+    return ids, d, (time.perf_counter() - t0) / len(qv) * 1e3
+
+
+def tie_sorted(ids, d) -> tuple:
+    """Each row's (distance, id) pairs sorted by distance bits, then id: two
+    results that differ only in how they order exactly equal distances
+    give the same arrays."""
+    bits = np.ascontiguousarray(d, dtype=np.float32).view(np.int32)
+    order = np.lexsort((ids, bits), axis=-1)
+    return np.take_along_axis(ids, order, -1), np.take_along_axis(bits, order, -1)
+
+
+def baselines_phase(dg, vecs, s, t, auto_q, brute_q, gt: dict) -> dict:
+    """The hybrid-search baselines (``repro_torch.baselines``, host numpy as
+    in the JAX package) beside the card's search; returns the kernel
+    launches of the card's runs.
+
+    1. ``PreFilter`` over the whole corpus: on the first 1024 queries of the
+       main path's auto batch and of its forced brute batch, the answers
+       equal the exact ground truth's, ids and distance bits, up to the
+       order of exactly equal distances (the JAX package's PreFilter
+       leaves those in ``argpartition``'s order where the ground truth
+       puts the smaller id first: ROADMAP C4), and equal the card's
+       ``plan="brute"`` batch (B3) under the tie rule of
+       ``repro_torch.data.parity`` (B3 sums cached norms, the host scan
+       the difference's squares);
+    2. PostFilter, ACORN and Hi-PNG at ``bench_main_search.py``'s
+       parameters on the first ``BASELINE_ROWS`` rows, beside UDG built
+       there on the card (M 16, Z 128, K_p 8) and searched with
+       ``execute_batch(plan="auto")``: 256 queries of the main mix at ef
+       64; every baseline returns only valid ids, Hi-PNG refuses overlap,
+       PreFilter's recall@10 is 1.0; recall@10 by method and selectivity,
+       build seconds, host ms a query and the card's batch ms reported.
+
+    ``gt`` maps ``"auto"`` and ``"brute"`` to the ground truth's ids and
+    distances on the first 1024 queries of each batch."""
+    from repro_torch.baselines import Acorn, HiPNG, PostFilterHNSW, PreFilter
+    from repro_torch.core.predicates import get_relation
+
+    res = {}
+    rel = get_relation(CONFIG.relation)
+    pre = PreFilter()
+    t0 = time.perf_counter()
+    pre.build(vecs, s, t, CONFIG.relation)
+    res["prefilter"] = {"n": len(vecs), "build_s": time.perf_counter() - t0,
+                        "index_bytes": pre.index_bytes}
+    launches = {}
+    for name, (qv, s_q, t_q) in (("auto", auto_q), ("brute", brute_q)):
+        qv, s_q, t_q = (a[:PREFILTER_QUERIES] for a in (qv, s_q, t_q))
+        ids, d, ms = host_search(pre, qv, s_q, t_q, 0)
+        want = gt[name]
+        require(all(np.array_equal(a, b) for a, b in zip(tie_sorted(ids, d), tie_sorted(*want))),
+                f"PreFilter differs from the ground truth on the {name} batch")
+        swapped = int((ids != want[0]).any(axis=1).sum())
+        reset_counts()
+        t0 = time.perf_counter()
+        c_ids, c_d = execute_batch(dg, qv, s_q, t_q, k=K, beam=BEAM, plan="brute")
+        card_ms = (time.perf_counter() - t0) * 1e3
+        launches[name] = dict(ops.LAUNCHES)
+        require(launches[name]["filter_dist_gather"] > 0, f"B3 never launched on the {name} queries")
+        bad = mismatches(ids, d, c_ids, c_d)
+        require(not bad, f"PreFilter vs the card's brute batch ({name}): {bad[:5]}")
+        res["prefilter"][name] = {"queries": len(qv), "recall_at_10": 1.0, "host_ms_per_query": ms,
+                                  "rows_with_exact_ties_reordered": swapped,
+                                  "card_brute_batch_ms": card_ms, "ids_equal_card": bool(np.array_equal(ids, c_ids)),
+                                  "launches": launches[name]}
+
+    # 2. the graph baselines beside UDG on the same rows
+    m = BASELINE_ROWS
+    bv, bs, bt = vecs[:m], s[:m], t[:m]
+    qv, s_q, t_q = make_queries(BASELINE_QUERIES, bs, bt, SELECTIVITIES, 61)
+    qs = ground_truth(QuerySet(CONFIG.relation, qv, s_q, t_q, 0.0, np.zeros(len(qv)), K), bv, bs, bt)
+    groups = {str(sel): np.arange(g, len(qv), len(SELECTIVITIES)) for g, sel in enumerate(SELECTIVITIES)}
+    masks = [rel.valid_mask(bs, bt, s_q[i], t_q[i]) for i in range(len(qv))]
+    methods = {"prefilter": PreFilter(), "postfilter": PostFilterHNSW(**BASELINE_KW["postfilter"]),
+               "acorn": Acorn(**BASELINE_KW["acorn"]), "hipng": HiPNG(**BASELINE_KW["hipng"])}
+    rows = {}
+    for name, method in methods.items():
+        t0 = time.perf_counter()
+        method.build(bv, bs, bt, CONFIG.relation)
+        build_s = time.perf_counter() - t0
+        ids, d, ms = host_search(method, qv, s_q, t_q, BASELINE_EF)
+        for i in range(len(qv)):
+            got = ids[i][ids[i] >= 0]
+            require(masks[i][got].all(), f"{name} returned an invalid id on query {i}")
+        rows[name] = {"build_s": build_s, "index_bytes": int(method.index_bytes),
+                      "host_ms_per_query": ms, "recall_at_10": recall_at_k(ids, qs),
+                      "by_selectivity": {sel: recall_at_k(ids[g], QuerySet(
+                          CONFIG.relation, qv[g], s_q[g], t_q[g], float(sel), np.zeros(g.size), K,
+                          gt_ids=qs.gt_ids[g])) for sel, g in groups.items()}}
+    require(rows["prefilter"]["recall_at_10"] == 1.0, "PreFilter is not exact at the baselines' rows")
+    try:
+        HiPNG(**BASELINE_KW["hipng"]).build(bv, bs, bt, "overlap")
+        require(False, "Hi-PNG built an overlap index")
+    except ValueError:
+        pass
+    reset_counts()
+    t0 = time.perf_counter()
+    g, et, _ = build_index(bv, bs, bt, CONFIG.relation, M=16, Z=128, K_p=8, device="cuda")
+    small = export_planned_graph(g, et, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lat = []
+    for _ in range(1 + 3):
+        t0 = time.perf_counter()
+        ids, d, pb = execute_batch(small, qv, s_q, t_q, k=K, beam=BEAM, plan="auto", return_plans=True)
+        lat.append(time.perf_counter() - t0)
+    launches["udg"] = dict(ops.LAUNCHES)
+    require(ids.shape == (len(qv), K) and np.all(np.isfinite(d)), "UDG's result at the baselines' rows")
+    for i in range(len(qv)):
+        require(masks[i][ids[i]].all(), f"UDG returned an invalid id on query {i}")
+    rows["udg_card"] = {"build_s": build_s, "batch_ms": statistics.median(lat[1:]) * 1e3,
+                        "warmup_batch_ms": lat[0] * 1e3, "plan_mix": pb.mix(),
+                        "recall_at_10": recall_at_k(ids, qs), "launches": launches["udg"],
+                        "by_selectivity": {sel: recall_at_k(ids[g], QuerySet(
+                            CONFIG.relation, qv[g], s_q[g], t_q[g], float(sel), np.zeros(g.size), K,
+                            gt_ids=qs.gt_ids[g])) for sel, g in groups.items()}}
+    res["graph_baselines"] = {"rows": m, "queries": len(qv), "ef": BASELINE_EF, "k": K,
+                              "params": BASELINE_KW, "hipng_refuses_overlap": True, "methods": rows}
+    emit({"reduced": {"baseline_rows": [FULL_N, m],
+                      "why": "the graph baselines' single-threaded Python builds cost 2.6-8.3 ms a "
+                             "node at d 768"}})
+    emit({"baselines": res})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=FULL_N, help="corpus size")
@@ -2631,10 +3041,11 @@ def main(argv=None) -> int:
         require(res_ids.shape == (BATCH, K) and res_d.shape == (BATCH, K), "result shape")
         # every query has >= k valid objects
         require(np.all(np.isfinite(res_d)), "non-finite distance in a result")
-    recall, gt = {}, {}
+    recall, gt, gt_dists = {}, {}, {}
     for name, (qq, ss, tt, rid) in {"auto": (qv, s_q, t_q, ids), "brute": (bq, bs, bt, b_ids)}.items():
         qs = QuerySet(CONFIG.relation, qq[:1024], ss[:1024], tt[:1024], 0.0, np.zeros(1024), K)
         gt[name] = ground_truth(qs, vecs, s, t).gt_ids
+        gt_dists[name] = qs.gt_dists
         recall[name] = recall_at_k(rid[:1024], qs)
     by_selectivity = {}
     for g_, sel in enumerate(SELECTIVITIES):
@@ -2738,6 +3149,20 @@ def main(argv=None) -> int:
     RECORD["segmented_s"] = time.perf_counter() - t0
     RECORD["launches_by_path"]["segmented"] = seg_launches
 
+    # 14. fault injection: the chaos scenario on the card, and the full-width
+    # step taken in phases 11 and 12 with its torn WAL tail recovered here
+    t0 = time.perf_counter()
+    fault_launches = fault_phase(stream_q)
+    RECORD["fault_s"] = time.perf_counter() - t0
+    RECORD["launches_by_path"]["fault"] = {"chaos": fault_launches,
+                                           "full_width": FAULT["compaction"]["launches"]}
+
+    # 15. the hybrid-search baselines beside the card's search
+    t0 = time.perf_counter()
+    RECORD["launches_by_path"]["baselines"] = baselines_phase(
+        dg, vecs, s, t, (qv, s_q, t_q), (bq, bs, bt), {k: (gt[k], gt_dists[k]) for k in gt})
+    RECORD["baselines_s"] = time.perf_counter() - t0
+
     # kernel -> (source, the TPU kernel's pallas_call, the path its launches count on)
     replaces = {
         "filter_dist_gather_packed": ("src/repro_torch/kernels/csrc/filter_dist.cu",
@@ -2768,6 +3193,8 @@ def main(argv=None) -> int:
             "serve_launches": (serve_launches["unfused"][name] if name == "filter_dist" else
                                serve_launches["auto/all_gather"][name]),
             "segmented_launches": seg_launches["unfused" if name == "filter_dist" else "auto"][name],
+            "fault_launches": {"chaos": fault_launches[name],
+                               "full_width": FAULT["compaction"]["launches"][name]},
             "ok": True,
         })
     RECORD["seconds"] = time.perf_counter() - t_all

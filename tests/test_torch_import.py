@@ -28,7 +28,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
-    assert int(out[0]) >= 51                       # every submodule was imported
+    assert int(out[0]) >= 60                       # every submodule was imported
     assert len(out) == 1, f"loaded: {out[1]}"
 
 
@@ -84,6 +84,24 @@ print(",".join(bad) or "none")
 def test_scale_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", SCALE], env=env, capture_output=True,
+                         text=True, check=True).stdout.split()
+    assert out == ["none"], f"loaded: {out}"
+
+
+FAULT_BASELINES = """
+import sys
+import repro_torch.fault, repro_torch.fault.chaos, repro_torch.baselines
+from repro_torch.fault import FaultInjector, FaultSpec, InjectedFault, poison_vector
+from repro_torch.fault.chaos import main, run_chaos
+from repro_torch.baselines import Acorn, HiPNG, PostFilterHNSW, PreFilter, build_knn_graph
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(",".join(bad) or "none")
+"""
+
+
+def test_fault_and_baselines_import_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", FAULT_BASELINES], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
     assert out == ["none"], f"loaded: {out}"
 
