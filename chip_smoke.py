@@ -113,7 +113,16 @@ kernel launch counts to 0 just before it and reads them just after:
     tie rule on 1024 auto and 1024 brute queries; PostFilter, ACORN and
     Hi-PNG at ``bench_main_search.py``'s parameters on 2048 rows beside UDG
     on the card: valid ids only, recall@10 by selectivity, build seconds,
-    host ms a query.
+    host ms a query;
+16. LM serving (``lm_phase``): llama3.2-1b's ``CONFIG`` at full width and
+    depth with random weights (seed 0) serves 8 prompts of 512 tokens:
+    ``prefill_step``, the cache copied into ``init_decode_state(cfg, 8,
+    576)``, 64 greedy ``decode_step``s, each step's logits held against
+    ``forward`` over the prompt plus the fed tokens, in f32 (1e-3) and bf16
+    (2e-2 of the row's max); every other architecture at full width and
+    one superblock deep (``reduced``), gemma3's ring-local decode, card
+    against CPU on every SMOKE config (1e-4) and on llama3.2-1b in f32
+    (1e-3); B1-B6 launch no time.
 
 Prints one JSON object per line; the line before the last is the kernel
 table and the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -128,6 +137,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -142,7 +152,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import CONFIG  # noqa: E402
+from repro_torch import models as lm  # noqa: E402
+from repro_torch.configs import ARCH_NAMES as LM_ARCHS, CONFIG, get_config as get_lm_config  # noqa: E402
 from repro_torch.core import build_index  # noqa: E402
 from repro_torch.data import generate_queries, ground_truth, make_dataset, make_queries_vectors  # noqa: E402
 from repro_torch.data.parity import mismatches  # noqa: E402
@@ -2935,6 +2946,312 @@ def baselines_phase(dg, vecs, s, t, auto_q, brute_q, gt: dict) -> dict:
     return launches
 
 
+LM_ARCH = "llama3.2-1b"       # served at full width and depth
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
+LM_F32_TOL = 1e-3             # atol = rtol, f32 with TF32 off
+LM_BF16_TOL = 2e-2            # of the row's max |logit| (tests/test_models.py's 2e-2)
+LM_OTHER = dict(batch=2, prompt=64, new=8)
+# the reference's own bf16 decode leaves its forward by more than 2e-2 on
+# these (a SMOKE run on the CPU: 0.0254 and 0.0338, ROADMAP C6): their bf16
+# error is reported and their f32 run decides
+LM_BF16_REPORTED = ("falcon-mamba-7b", "zamba2-2.7b")
+LM_PROMPTS = {"gemma3-12b": 1536}   # past the 1024-token window, a multiple of the 512 chunk
+LM_CPU = dict(batch=2, prompt=16, steps=4, full_prompt=32)
+BF16_OPS_PER_S = FP16_OPS_PER_S
+
+
+def lm_tokens(cfg, b: int, s: int, seed: int) -> torch.Tensor:
+    shape = (b, s) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1 else ())
+    return torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab_size, shape),
+                           device="cuda")
+
+
+def sized_state(cfg, cache: dict, b: int, s: int, new: int, device="cuda") -> dict:
+    """The prefill cache copied into a decode state of length s + new (ROADMAP
+    C5: the prompt-sized cache has no room for a decoded token)."""
+    st = lm.init_decode_state(cfg, b, s + new, device=device)
+    for key, sub in cache.items():
+        for leaf, t in sub.items():
+            (st[key][leaf] if key == "ssm" else st[key][leaf][..., :s, :, :]).copy_(t)
+    return st
+
+
+def whole_chunk(cfg, s: int):
+    """``cfg`` whose attention chunk divides ``s`` (the reference's forward
+    asserts ``s % chunk == 0``; the chunk only blocks the online softmax)."""
+    chunk = min(cfg.attn_chunk, s)
+    return cfg if s % chunk == 0 else dataclasses.replace(cfg, attn_chunk=math.gcd(s, cfg.attn_chunk))
+
+
+def lm_gate(got: torch.Tensor, want: torch.Tensor, what: str, *, f32: bool,
+            soft: bool = False) -> dict:
+    """f32: |got - want| <= tol + tol |want| everywhere; bf16: the largest
+    |got - want| of a row within 2e-2 of that row's max |want| (only
+    reported when ``soft``). Also the greedy (argmax) agreement."""
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    diff = (got - want).abs()
+    row = (diff.amax(-1) / want.abs().amax(-1)).max().item()
+    out = {"max_abs_err": diff.max().item(), "max_row_rel_err": row,
+           "greedy_agree": (got.argmax(-1) == want.argmax(-1)).float().mean().item()}
+    if f32:
+        excess = (diff - LM_F32_TOL - LM_F32_TOL * want.abs()).max().item()
+        require(excess <= 0, f"{what}: f32 logits leave forward's by {out['max_abs_err']}")
+    elif not soft:
+        require(row <= LM_BF16_TOL, f"{what}: bf16 logits leave forward's by {row} of the row max")
+    return out
+
+
+def lm_serve(cfg, b: int, s: int, new: int, *, f32: bool, seed: int, what: str,
+             timed: bool = False, soft: bool = False) -> tuple:
+    """Prefill ``b`` prompts of ``s`` seeded tokens, copy the cache into a
+    state of length s + new, decode ``new`` greedy tokens, then hold the
+    prefill's and every step's logits against ``forward`` over the prompt
+    plus the fed tokens. Returns (record, model)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    rec = {"params": lm.param_count(model), "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    toks = lm_tokens(cfg, b, s, seed)
+    if timed:                                  # warm-up: cuBLAS handles, allocator
+        lg, cache = lm.prefill_step(model, cfg, toks)
+        st = sized_state(cfg, cache, b, s, 1)
+        lm.decode_step(model, cfg, st, lg.argmax(-1)[:, None], torch.full((b,), s, device="cuda"))
+        del lg, cache, st
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill_step(model, cfg, toks)
+    torch.cuda.synchronize()
+    rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    state = sized_state(cfg, cache, b, s, new)
+    del cache
+    fed, step_logits, step_ms = [], [], []
+    nxt = logits.argmax(-1)
+    for i in range(new):
+        fed.append(nxt)
+        t0 = time.perf_counter()
+        lg, state = lm.decode_step(model, cfg, state, nxt[:, None], torch.full((b,), s + i, device="cuda"))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_logits.append(lg)
+        nxt = lg.argmax(-1)
+    rec["decode_p50_ms"] = float(np.percentile(step_ms, 50))
+    rec["decode_p99_ms"] = float(np.percentile(step_ms, 99))
+    rec["decode_tok_s"] = b * 1e3 / statistics.median(step_ms)
+    rec["prefill_tok_s"] = b * s * 1e3 / rec["prefill_ms"]
+    rec["state_bytes"] = sum(t.numel() * t.element_size() for sub in state.values() for t in sub.values())
+    if timed:   # one more step at the last position (its slot rewritten) and the prefill, traced
+        last = torch.full((b,), s + new - 1, device="cuda")
+        rec["decode_trace"] = lm_trace(lambda: lm.decode_step(model, cfg, state, fed[-1][:, None], last),
+                                       rec["decode_p50_ms"])
+        rec["prefill_trace"] = lm_trace(lambda: lm.prefill_step(model, cfg, toks), rec["prefill_ms"])
+    del state
+    seq = torch.cat([toks, torch.stack(fed, dim=1)], dim=1)
+    full, aux = lm.forward(model, whole_chunk(cfg, s + new), seq)
+    require(bool(torch.isfinite(aux)), f"{what}: non-finite aux loss")
+    rec["aux"] = aux.item()
+    rec["prefill_gate"] = lm_gate(logits, full[:, s - 1], f"{what} prefill", f32=f32, soft=soft)
+    steps = [lm_gate(lg, full[:, s + i], f"{what} decode step {i}", f32=f32, soft=soft)
+             for i, lg in enumerate(step_logits)]
+    rec["decode_gate"] = {k: (min if k == "greedy_agree" else max)(st[k] for st in steps)
+                          for k in steps[0]}
+    rec["logits_shape"] = list(step_logits[0].shape)
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - base
+    del full, step_logits
+    return rec, model
+
+
+def lm_trace(run, wall_ms: float) -> dict:
+    """Device busy time, kernel launches and the top kernels by device time
+    over one traced call of ``run``; idle share against its untraced time."""
+    by_name = traced_ms(run)
+    busy = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"device_busy_ms": busy, "launches": sum(n for _, n in by_name.values()),
+            "idle_share": 1.0 - busy / wall_ms,
+            "top": [[name[:80], round(t, 4), n] for name, (t, n) in top]}
+
+
+def lm_bounds(cfg, rec: dict, b: int, s: int, new: int, ops_rate: float) -> None:
+    """The least time of a prefill (operations: 2 x the layers' matmul
+    parameters x tokens, the causal attention's QK and PV, the last
+    position's unembedding; or its parameter bytes) and of a decode step
+    (bytes: every parameter and the K/V read at the steps' mean length)."""
+    elt = 2 if cfg.dtype == "bfloat16" else 4
+    table = cfg.vocab_size * cfg.d_model
+    layer_mm = rec["params"] - table - (cfg.num_layers * 2 + 1) * cfg.d_model
+    attn = cfg.num_layers * 2 * b * cfg.num_heads * s * s * cfg.head_dim     # causal: S^2/2 x 2 products x 2
+    prefill_ops = 2 * layer_mm * b * s + attn + 2 * table * b
+    rec["prefill_bound_ms"], rec["prefill_bound_by"] = bound(rec["param_bytes"], prefill_ops, ops_rate)
+    kv_read = sum(cfg.num_layers * b * (s + i + 1) * cfg.num_kv_heads * cfg.head_dim * 2 * elt
+                  for i in range(new)) / new
+    rec["decode_kv_bytes"] = kv_read
+    rec["decode_bound_ms"], rec["decode_bound_by"] = bound(
+        rec["param_bytes"] + kv_read, 2 * (layer_mm + table) * b, ops_rate)
+
+
+def ring_matches_full(model, cfg, b: int, steps: int) -> dict:
+    """gemma3: decoding from a fresh ring-local state equals decoding from a
+    fresh full cache, past the window (the reference's
+    ``test_ring_local_decode_matches_full_cache``, at its 2e-2)."""
+    toks = lm_tokens(cfg, b, steps, 12)
+    full = lm.init_decode_state(cfg, b, steps)
+    ring = lm.init_decode_state(cfg, b, steps, ring_local=True)
+    worst = torch.zeros((), device="cuda")
+    for i in range(steps):
+        pos = torch.full((b,), i, device="cuda")
+        lf, full = lm.decode_step(model, cfg, full, toks[:, i:i + 1], pos)
+        lr, ring = lm.decode_step(model, cfg, ring, toks[:, i:i + 1], pos)
+        worst = torch.maximum(worst, ((lr - lf).abs().amax(-1) / lf.abs().amax(-1)).max())
+    worst = worst.item()
+    require(worst <= LM_BF16_TOL, f"ring-local decode leaves the full cache's by {worst}")
+    return {"steps": steps, "window": cfg.window_size, "ring_slots": ring["kv_local"]["k"].shape[-3],
+            "max_row_rel_err": worst}
+
+
+def card_vs_cpu(model, cfg, b: int, s: int, steps: int, tol: float) -> float:
+    """The same weights on the card and the CPU: forward and prefill logits,
+    every prefill cache leaf, ``steps`` decode steps on the sized cache (the
+    logits and every state leaf) equal within ``tol``; the largest error."""
+    cpu_model = lm.LM(cfg, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    toks = lm_tokens(cfg, b, s + steps, 7)
+    worst = 0.0
+
+    def same(got, want, what):
+        nonlocal worst
+        got, want = got.cpu().float(), want.float()
+        require(torch.allclose(got, want, atol=tol, rtol=tol), f"{cfg.name} card vs CPU: {what}")
+        worst = max(worst, (got - want).abs().max().item())
+
+    same(lm.forward(model, cfg, toks[:, :s])[0], lm.forward(cpu_model, cfg, toks[:, :s].cpu())[0],
+         "forward")
+    lg, cache = lm.prefill_step(model, cfg, toks[:, :s])
+    lg_c, cache_c = lm.prefill_step(cpu_model, cfg, toks[:, :s].cpu())
+    same(lg, lg_c, "prefill logits")
+    for key in cache:
+        for leaf in cache[key]:
+            same(cache[key][leaf], cache_c[key][leaf], f"prefill {key}/{leaf}")
+    st, st_c = sized_state(cfg, cache, b, s, steps), sized_state(cfg, cache_c, b, s, steps, "cpu")
+    for i in range(steps):
+        pos = torch.full((b,), s + i)
+        lg, st = lm.decode_step(model, cfg, st, toks[:, s + i:s + i + 1], pos.cuda())
+        lg_c, st_c = lm.decode_step(cpu_model, cfg, st_c, toks[:, s + i:s + i + 1].cpu(), pos)
+        same(lg, lg_c, f"decode step {i}")
+        for key in st:
+            for leaf in st[key]:
+                same(st[key][leaf], st_c[key][leaf], f"step {i} {key}/{leaf}")
+    return worst
+
+
+def lm_phase(out: Path) -> dict:
+    """Phase 16: the LM substrate's serving path (``repro_torch.models``).
+
+    1. llama3.2-1b's ``CONFIG`` (16 layers, d 2048, vocab 128256) with random
+       weights from seed 0: 8 prompts of 512 seeded tokens prefilled, the
+       cache copied into a state of 512 + 64, 64 greedy decode steps; the
+       prefill's and every step's logits held against ``forward`` over the
+       prompt plus the fed tokens, in f32 (TF32 off, 1e-3) and in bf16
+       (2e-2 of the row's max |logit|); times, tokens/s, peak bytes, bounds;
+    2. every other architecture at full width and one superblock deep: its
+       forward, prefill and 8 decode steps on the sized cache in f32 and in
+       bf16 under the same gates (the SSM stacks' bf16 error reported, not
+       gated: ``LM_BF16_REPORTED``; the MoE stacks at a capacity that drops no token: a
+       forward and a decode step group tokens differently); gemma3's prompt
+       of 1536 past its window and its ring-local decode against its full
+       cache; MoE's aux loss finite; musicgen's [B, 4, 2048] logits;
+    3. card against CPU: every SMOKE config in f32 (forward, prefill and its
+       cache, 4 decode steps) within 1e-4, then llama3.2-1b's ``CONFIG`` in
+       f32 at B 2, S 32 within 1e-3;
+    4. B1-B6 launch no time in the phase.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    reset_counts()
+    rec: dict = {}
+    reduced: dict = {}
+
+    # 1. the served model, f32 then bf16
+    cfg = get_lm_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    served = {}
+    for name, c, ops_rate in (("float32", cfg32, FP32_OPS_PER_S), ("bfloat16", cfg, BF16_OPS_PER_S)):
+        r, model = lm_serve(c, LM_BATCH, LM_PROMPT, LM_NEW, f32=c is cfg32, seed=1,
+                            what=f"{LM_ARCH} {name}", timed=True)
+        lm_bounds(c, r, LM_BATCH, LM_PROMPT, LM_NEW, ops_rate)
+        served[name] = r
+        if c is cfg32:
+            model32 = model
+        del model
+        torch.cuda.empty_cache()
+    rec["served"] = {"arch": LM_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+                     "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW, **served}
+
+    # 2. every other architecture, full width, one superblock
+    archs = {}
+    for arch in LM_ARCHS:
+        if arch == LM_ARCH:
+            continue
+        full_cfg = get_lm_config(arch)
+        keep = max(full_cfg.layer_groups()[1], 2)     # one superblock; two layers of a flat stack
+        c = dataclasses.replace(full_cfg, num_layers=keep)
+        reduced[f"{arch}.num_layers"] = [full_cfg.num_layers, keep]
+        if c.is_moe:
+            # capacity follows the token group (a forward's whole batch, a decode
+            # step's B rows), so at 1.25 the two drop different tokens and their
+            # logits differ by design; at E / k no group drops a token
+            c = dataclasses.replace(c, capacity_factor=c.num_experts / c.top_k)
+            reduced[f"{arch}.capacity_factor"] = [full_cfg.capacity_factor, c.capacity_factor]
+        t0 = time.perf_counter()
+        archs[arch] = {}
+        for name, cd in (("float32", dataclasses.replace(c, dtype="float32")), ("bfloat16", c)):
+            f32 = cd.dtype == "float32"
+            r, model = lm_serve(cd, LM_OTHER["batch"], LM_PROMPTS.get(arch, LM_OTHER["prompt"]),
+                                LM_OTHER["new"], f32=f32, seed=2, what=f"{arch} {name}",
+                                soft=not f32 and arch in LM_BF16_REPORTED)
+            if cd.num_codebooks > 1:
+                require(r["logits_shape"] == [LM_OTHER["batch"], cd.num_codebooks, cd.vocab_size],
+                        f"{arch}: logits {r['logits_shape']}")
+            if cd.attn_pattern == "local_global" and not f32:
+                r["ring_local"] = ring_matches_full(model, cd, LM_OTHER["batch"], cd.window_size + 8)
+            archs[arch][name] = {k: r[k] for k in (
+                "params", "param_bytes", "init_s", "prefill_ms", "decode_p50_ms", "aux",
+                "prefill_gate", "decode_gate", "logits_shape", "peak_device_bytes", "ring_local")
+                if k in r}
+            del model
+            torch.cuda.empty_cache()
+        archs[arch]["seconds"] = time.perf_counter() - t0
+    rec["archs"] = archs
+
+    # 3. card against CPU
+    t0 = time.perf_counter()
+    smoke = {}
+    for arch in LM_ARCHS:
+        c = dataclasses.replace(get_lm_config(arch, smoke=True), dtype="float32")
+        model = lm.init_params(c, seed=0)
+        smoke[arch] = card_vs_cpu(model, c, LM_CPU["batch"], LM_CPU["prompt"], LM_CPU["steps"], 1e-4)
+    full_err = card_vs_cpu(model32, cfg32, LM_CPU["batch"], LM_CPU["full_prompt"], 2, LM_F32_TOL)
+    del model, model32
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = {"smoke_f32_max_abs_err": smoke, "tol": 1e-4,
+                          f"{LM_ARCH}_f32_max_abs_err": full_err, f"{LM_ARCH}_tol": LM_F32_TOL,
+                          "seconds": time.perf_counter() - t0}
+
+    # 4. no UDG kernel on this path
+    launches = dict(ops.LAUNCHES)
+    require(not any(launches.values()), f"the LM path launched a UDG kernel: {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"reduced": reduced})
+    emit({"lm": rec})
+    (out / "lm.json").write_text(json.dumps(rec, indent=1))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=FULL_N, help="corpus size")
@@ -3163,6 +3480,14 @@ def main(argv=None) -> int:
         dg, vecs, s, t, (qv, s_q, t_q), (bq, bs, bt), {k: (gt[k], gt_dists[k]) for k in gt})
     RECORD["baselines_s"] = time.perf_counter() - t0
 
+    # 16. the LM substrate's serving path, after the UDG phases' device state
+    del dg, q_dev
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_launches = lm_phase(out)
+    RECORD["lm_s"] = time.perf_counter() - t0
+    RECORD["launches_by_path"]["lm"] = lm_launches
+
     # kernel -> (source, the TPU kernel's pallas_call, the path its launches count on)
     replaces = {
         "filter_dist_gather_packed": ("src/repro_torch/kernels/csrc/filter_dist.cu",
@@ -3195,6 +3520,7 @@ def main(argv=None) -> int:
             "segmented_launches": seg_launches["unfused" if name == "filter_dist" else "auto"][name],
             "fault_launches": {"chaos": fault_launches[name],
                                "full_width": FAULT["compaction"]["launches"][name]},
+            "lm_launches": lm_launches[name],
             "ok": True,
         })
     RECORD["seconds"] = time.perf_counter() - t_all

@@ -1,0 +1,20 @@
+"""LM substrate, serving path: decoder stacks for every assigned
+architecture family (dense GQA, local:global, Mamba1/Mamba2 SSM,
+fine-grained MoE, hybrid shared-attention, VLM/audio token backbones), their
+prefill and decode steps with caches, and ``params_from_numpy`` to carry the
+JAX package's parameters across. Training comes with the optimizer."""
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.model import LM, forward, init_params, init_params_shapes, param_count
+from repro_torch.models.steps import decode_step, init_decode_state, prefill_step
+
+__all__ = [
+    "LM",
+    "decode_step",
+    "forward",
+    "init_decode_state",
+    "init_params",
+    "init_params_shapes",
+    "param_count",
+    "params_from_numpy",
+    "prefill_step",
+]

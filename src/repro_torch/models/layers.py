@@ -1,0 +1,126 @@
+"""Shared transformer layers: RMSNorm, RoPE, MLP variants, embeddings
+(the JAX package's ``models/layers.py``).
+
+Each layer is an ``nn.Module`` that owns its parameters under the JAX
+package's leaf names (``scale``, ``w_in``, ``table``, ...), and a plain
+function over that module and tensors computes it (``rmsnorm(p, x)``,
+``mlp(p, x, mlp_type)``); it reads the leaves as attributes, so any object
+with attributes of those names will do. Weights keep the reference's orientation: a projection is
+``x @ w`` with ``w`` of shape ``[in, out]``. Modules allocate their
+parameters uninitialised (``torch.empty``, usually on the ``meta`` device);
+``model.init_params`` draws them and ``convert.params_from_numpy`` carries
+the reference's across.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised parameter without gradients: this package serves."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` [..., K] x [K, N] with the products summed in f32 and f32
+    out, whatever the operands' dtype: the reference's
+    ``preferred_element_type=jnp.float32`` (a bf16 ``torch.matmul`` would
+    round its output to bf16). On the card a bf16 product is one cuBLAS call
+    with an f32 output; elsewhere the operands are widened to f32 first
+    (exact), which on the card would copy the whole table a call."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(x.shape[:-1] + (w.shape[-1],))
+    return torch.matmul(x.float(), w.float())
+
+
+# --- RMSNorm -------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype, device=None):
+        super().__init__()
+        self.scale = param((d,), dtype, device)
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p.scale.float()).to(x.dtype)
+
+
+# --- RoPE ----------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: broadcastable to [..., S]. Split halves."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                         # [hd/2]
+    ang = positions[..., :, None].to(torch.float32) * freqs         # [..., S, hd/2]
+    cos = torch.cos(ang)[..., None, :]                              # [..., S, 1, hd/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- MLP variants ---------------------------------------------------------------
+
+MLP_TYPES = ("swiglu", "squared_relu", "gelu")
+
+
+class MLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, mlp_type: str, dtype, device=None):
+        super().__init__()
+        self.w_in = param((d_model, d_ff), dtype, device)
+        self.w_out = param((d_ff, d_model), dtype, device)
+        if mlp_type == "swiglu":
+            self.w_gate = param((d_model, d_ff), dtype, device)
+
+
+def activate(h: torch.Tensor, mlp_type: str, gate_in=None) -> torch.Tensor:
+    """The MLP's nonlinearity on ``h = x @ w_in`` (``gate_in = x @ w_gate``
+    for swiglu). ``gelu`` is the tanh approximation, as ``jax.nn.gelu``'s
+    default."""
+    if mlp_type == "swiglu":
+        return F.silu(gate_in) * h
+    if mlp_type == "squared_relu":  # nemotron-4
+        return torch.square(F.relu(h))
+    if mlp_type == "gelu":
+        return F.gelu(h, approximate="tanh")
+    raise ValueError(f"unknown mlp_type {mlp_type}")
+
+
+def mlp(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    h = x @ p.w_in
+    gate_in = x @ p.w_gate if mlp_type == "swiglu" else None
+    return activate(h, mlp_type, gate_in) @ p.w_out
+
+
+# --- Embedding / unembedding ------------------------------------------------------
+
+
+class Embedding(nn.Module):
+    """``table``: [V, D], or [K, V, D] for K codebooks (musicgen)."""
+
+    def __init__(self, vocab: int, d_model: int, dtype, device=None, codebooks: int = 1):
+        super().__init__()
+        shape = (vocab, d_model) if codebooks == 1 else (codebooks, vocab, d_model)
+        self.table = param(shape, dtype, device)
+
+
+def embed(p, ids: torch.Tensor) -> torch.Tensor:
+    return p.table[ids]
+
+
+def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: [., D] @ [D, V] -> f32 logits."""
+    return matmul_f32(x, p.table.T)

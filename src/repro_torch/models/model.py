@@ -1,0 +1,255 @@
+"""Model assembly (the JAX package's ``models/model.py``): the module tree,
+parameter init and the full-sequence forward for every architecture family.
+
+The model is an ``nn.Module`` (``LM``) whose parameters carry the JAX
+package's leaf names with the stacked layer axes unrolled into
+``nn.ModuleList``s: the reference's ``layers/attn/wq`` of shape [L, D, H*hd]
+is ``layers.<l>.attn.wq`` here, and a superblock stack's [G, P, ...] leaf is
+``layers.<g>.<p>...`` (gemma3's 5 local + 1 global layers, zamba2's P-1
+Mamba2 layers before its one shared attention block, ``shared_attn``).
+``convert.params_from_numpy`` maps one onto the other. Families:
+
+  flat (dense / moe / vlm / audio)  L attention blocks
+  local_global (gemma3)             G superblocks of P blocks, the last global
+  ssm (falcon-mamba)                L Mamba1 blocks
+  hybrid (zamba2)                   G superblocks of P-1 Mamba2 blocks, then
+                                    the shared attention block
+musicgen sums one embedding table per codebook and emits per-codebook logits
+from untied heads [K, D, V]; the others tie the unembedding to the table.
+Logits are f32 from operands in the model's dtype. The layers run in a
+Python loop (the reference's ``lax.scan``; ``cfg.unroll_layers`` gives the
+same values there and changes nothing here).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, dtype_of
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import MLP, Embedding, RMSNorm, embed, matmul_f32, mlp, param, rmsnorm, unembed
+
+
+class AttnBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device=None):
+        super().__init__()
+        self.attn_norm = RMSNorm(cfg.d_model, dtype, device)
+        self.attn = attn_lib.Attention(cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                       dtype, device)
+        self.mlp_norm = RMSNorm(cfg.d_model, dtype, device)
+        if cfg.is_moe:
+            self.moe = moe_lib.MoE(cfg.d_model, cfg.num_experts, cfg.num_shared_experts,
+                                   cfg.d_ff_expert, cfg.mlp_type, dtype, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, device)
+
+
+class SSMBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device=None):
+        super().__init__()
+        self.norm = RMSNorm(cfg.d_model, dtype, device)
+        if cfg.ssm_kind == "mamba1":
+            self.mamba = ssm_lib.Mamba1(cfg.d_model, cfg.ssm_state, cfg.ssm_conv, cfg.ssm_expand,
+                                        dtype, device)
+        else:
+            self.mamba = ssm_lib.Mamba2(cfg.d_model, cfg.ssm_state, cfg.ssm_conv, cfg.ssm_expand,
+                                        cfg.ssm_head_dim, dtype, device)
+
+
+class LM(nn.Module):
+    """One architecture's parameters (uninitialised; see ``init_params``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dtype = dtype_of(cfg)
+        self.final_norm = RMSNorm(cfg.d_model, dtype, device)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype, device, cfg.num_codebooks)
+        if cfg.num_codebooks > 1:  # musicgen: untied per-codebook heads
+            self.heads = param((cfg.num_codebooks, cfg.d_model, cfg.vocab_size), dtype, device)
+        G, P = cfg.layer_groups()
+        if cfg.family == "ssm":
+            self.layers = nn.ModuleList(SSMBlock(cfg, dtype, device) for _ in range(cfg.num_layers))
+        elif cfg.is_hybrid:
+            self.layers = nn.ModuleList(
+                nn.ModuleList(SSMBlock(cfg, dtype, device) for _ in range(P - 1)) for _ in range(G))
+            self.shared_attn = AttnBlock(cfg, dtype, device)
+        elif cfg.attn_pattern == "local_global":
+            self.layers = nn.ModuleList(
+                nn.ModuleList(AttnBlock(cfg, dtype, device) for _ in range(P)) for _ in range(G))
+        else:  # dense / moe / vlm / audio: a flat stack
+            self.layers = nn.ModuleList(AttnBlock(cfg, dtype, device) for _ in range(cfg.num_layers))
+
+    def forward(self, tokens, positions=None):
+        return forward(self, self.cfg, tokens, positions)
+
+
+# --- init ------------------------------------------------------------------------
+
+_DRAW_BLOCK = 1 << 26          # f32 normals drawn at a time: bounds init's peak memory
+_SCALES = {"table": 0.02, "router": 0.02, "conv_w": 0.5}
+
+
+def _normal_(t: torch.Tensor, scale: float, gen: torch.Generator) -> None:
+    """Fill ``t`` with N(0, 1) * scale drawn in f32 and cast, in blocks."""
+    flat = t.view(-1)
+    for i in range(0, flat.numel(), _DRAW_BLOCK):
+        n = min(_DRAW_BLOCK, flat.numel() - i)
+        draw = torch.randn(n, generator=gen, dtype=torch.float32, device=t.device)
+        flat[i:i + n].copy_(draw.mul_(scale))
+
+
+def _init_leaf(name: str, t: torch.Tensor, gen: torch.Generator) -> None:
+    """The reference's init rule for a leaf of this name: norms' ``scale``
+    and Mamba's ``D`` ones, biases zero, Mamba1's ``A_log`` log(1..d_state)
+    (Mamba2's zero), ``table``/``router`` N * 0.02, ``conv_w`` N * 0.5, and
+    every projection N / sqrt(fan_in) with the reference's fan_in (the leaf's
+    first axis; the D axis of musicgen's heads)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in ("scale", "D"):
+        t.fill_(1.0)
+    elif leaf in ("conv_b", "dt_bias"):
+        t.zero_()
+    elif leaf == "A_log":
+        if t.dim() == 2:  # mamba1: [d_inner, d_state]
+            ar = torch.arange(1, t.shape[1] + 1, dtype=torch.float32, device=t.device)
+            t.copy_(torch.log(ar).expand(t.shape))
+        else:
+            t.zero_()
+    else:
+        fan_in = t.shape[1] if name == "heads" else t.shape[0]
+        _normal_(t, _SCALES.get(leaf, 1.0 / math.sqrt(fan_in)), gen)
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
+    """Random parameters drawn on ``device`` (``None``: the card, raising
+    without CUDA) from ``torch.Generator(device).manual_seed(seed)``, leaf
+    by leaf in module order. Values follow the reference's distributions;
+    they are not its values (carry those with ``params_from_numpy``)."""
+    dev = resolve_device(device)
+    model = LM(cfg, device="meta").to_empty(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name, t in model.named_parameters():
+        _init_leaf(name, t, gen)
+    return model
+
+
+def init_params_shapes(cfg: ModelConfig) -> LM:
+    """The model on the ``meta`` device: shapes and dtypes, no allocation."""
+    return LM(cfg, device="meta")
+
+
+def param_count(params: nn.Module) -> int:
+    return sum(p.numel() for p in params.parameters())
+
+
+# --- blocks ------------------------------------------------------------------------
+
+
+def _ffn(cfg: ModelConfig, p, y: torch.Tensor, group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's MLP or MoE on the normed input; (out, aux)."""
+    if cfg.is_moe and getattr(p, "moe", None) is not None:
+        return moe_lib.moe(p.moe, y, num_experts=cfg.num_experts, top_k=cfg.top_k,
+                           mlp_type=cfg.mlp_type, capacity_factor=cfg.capacity_factor,
+                           group=group)
+    return mlp(p.mlp, y, cfg.mlp_type), torch.zeros((), dtype=torch.float32, device=y.device)
+
+
+def _attn_kw(cfg: ModelConfig) -> dict:
+    return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+
+
+def _attn_block_kv(cfg: ModelConfig, p, x, positions, window: Optional[int]):
+    """One attention block over the sequence; (x, aux, (k, v))."""
+    h, kv = attn_lib.attention_with_kv(p.attn, rmsnorm(p.attn_norm, x, cfg.norm_eps), positions,
+                                       window=window, chunk=cfg.attn_chunk, **_attn_kw(cfg))
+    x = x + h
+    out, aux = _ffn(cfg, p, rmsnorm(p.mlp_norm, x, cfg.norm_eps), cfg.moe_group)
+    return x + out, aux, kv
+
+
+def _attn_block(cfg: ModelConfig, p, x, positions, window: Optional[int]):
+    x, aux, _ = _attn_block_kv(cfg, p, x, positions, window)
+    return x, aux
+
+
+def _ssm_block_state(cfg: ModelConfig, p, x):
+    """One Mamba block over the sequence; (x, decode state)."""
+    y = rmsnorm(p.norm, x, cfg.norm_eps)
+    if cfg.ssm_kind == "mamba1":
+        h, st = ssm_lib.mamba1_with_state(p.mamba, y, d_state=cfg.ssm_state,
+                                          expand=cfg.ssm_expand, d_conv=cfg.ssm_conv,
+                                          chunk=cfg.ssm_chunk)
+    elif cfg.ssm_impl == "ssd":
+        h, st = ssm_lib.mamba2_ssd_with_state(p.mamba, y, d_state=cfg.ssm_state,
+                                              expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                                              d_conv=cfg.ssm_conv, chunk=min(cfg.ssm_chunk, 64))
+    else:
+        h, st = ssm_lib.mamba2_with_state(p.mamba, y, d_state=cfg.ssm_state,
+                                          expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                                          d_conv=cfg.ssm_conv, chunk=cfg.ssm_chunk)
+    return x + h, st
+
+
+def _ssm_block(cfg: ModelConfig, p, x):
+    return _ssm_block_state(cfg, p, x)[0]
+
+
+# --- forward ------------------------------------------------------------------------
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
+    if cfg.num_codebooks > 1:
+        tab = params.embed.table                 # [K, V, D]
+        x = tab[0][tokens[..., 0]]
+        for k in range(1, cfg.num_codebooks):    # summed in order, in the model's dtype
+            x = x + tab[k][tokens[..., k]]
+        return x
+    return embed(params.embed, tokens)
+
+
+def _logits(params, cfg: ModelConfig, x) -> torch.Tensor:
+    if cfg.num_codebooks > 1:
+        return torch.stack([matmul_f32(x, h) for h in params.heads], dim=2)   # [B, S, K, V]
+    return unembed(params.embed, x)
+
+
+def _positions(tokens: torch.Tensor, positions) -> torch.Tensor:
+    B, S = tokens.shape[0], tokens.shape[1]
+    if positions is None:
+        return torch.arange(S, device=tokens.device)[None].expand(B, S)
+    return positions
+
+
+def forward(params, cfg: ModelConfig, tokens, positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits f32, moe aux-loss scalar)."""
+    positions = _positions(tokens, positions)
+    x = _embed_tokens(params, cfg, tokens)
+    G, P = cfg.layer_groups()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for lp in params.layers:
+            x = _ssm_block(cfg, lp, x)
+    elif cfg.is_hybrid:
+        for group in params.layers:
+            for lp in group:
+                x = _ssm_block(cfg, lp, x)
+            x, _ = _attn_block(cfg, params.shared_attn, x, positions, None)
+    elif cfg.attn_pattern == "local_global":
+        for group in params.layers:
+            for i, lp in enumerate(group):
+                x, _ = _attn_block(cfg, lp, x, positions, cfg.window_size if i < P - 1 else None)
+    else:
+        for lp in params.layers:
+            x, a = _attn_block(cfg, lp, x, positions, None)
+            aux = aux + a
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return _logits(params, cfg, x), aux

@@ -28,7 +28,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
-    assert int(out[0]) >= 60                       # every submodule was imported
+    assert int(out[0]) >= 81                       # every submodule was imported
     assert len(out) == 1, f"loaded: {out[1]}"
 
 
@@ -102,6 +102,24 @@ print(",".join(bad) or "none")
 def test_fault_and_baselines_import_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", FAULT_BASELINES], env=env, capture_output=True,
+                         text=True, check=True).stdout.split()
+    assert out == ["none"], f"loaded: {out}"
+
+
+MODELS = """
+import sys
+import repro_torch.models, repro_torch.configs
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.models import (decode_step, forward, init_decode_state, init_params,
+                                params_from_numpy, prefill_step)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(",".join(bad) or "none")
+"""
+
+
+def test_models_and_configs_import_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", MODELS], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
     assert out == ["none"], f"loaded: {out}"
 
