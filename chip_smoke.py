@@ -57,7 +57,7 @@ kernel launch counts to 0 just before it and reads them just after:
    the exact filtered top-10 equals the host ground truth under the tie rule;
    both matrices are then held against their plain versions, and both
    kernels timed, at this shape;
-10. parity: 128 of the main path's queries on the CPU (plain versions) and on
+10. parity: 64 of the main path's queries on the CPU (plain versions) and on
     the card, held equal under the tie rule of ``repro_torch.data.parity``;
     then 8 of them at beam 300, whose wide search (L 600) takes B2's chunked
     selection;
@@ -75,7 +75,8 @@ kernel launch counts to 0 just before it and reads them just after:
     the launcher's loop (``launch.serve.serve_requests``) over the main
     path's queries with ``plan`` auto and graph and both merges (B1, B2 on
     every batch, B3 on the auto ones; the merges equal; recall, QPS, plan
-    mix per shard), the unfused step (B4), the stats step against each
+    mix per shard), the auto batch on a ``data=2`` mesh bit-equal to data
+    1 (B1-B3 launched on both query slices), the unfused step (B4), the stats step against each
     shard's counters, card against CPU, a one-rank NCCL process group
     bit-equal to the single-process mesh; ``StreamingServer`` over the
     streaming index (``bench_serving.py``'s 2x overload loop with its
@@ -110,8 +111,8 @@ kernel launch counts to 0 just before it and reads them just after:
     cut of the same record;
 15. baselines (``baselines_phase``): ``PreFilter`` over the whole corpus
     equal to the ground truth and to the card's brute batch (B3) under the
-    tie rule on 1024 auto and 1024 brute queries; PostFilter, ACORN and
-    Hi-PNG at ``bench_main_search.py``'s parameters on 2048 rows beside UDG
+    tie rule on 512 auto and 512 brute queries; PostFilter, ACORN and
+    Hi-PNG at ``bench_main_search.py``'s parameters on 1024 rows beside UDG
     on the card: valid ids only, recall@10 by selectivity, build seconds,
     host ms a query;
 16. LM serving (``lm_phase``): llama3.2-1b's ``CONFIG`` at full width and
@@ -122,7 +123,18 @@ kernel launch counts to 0 just before it and reads them just after:
     (2e-2 of the row's max); every other architecture at full width and
     one superblock deep (``reduced``), gemma3's ring-local decode, card
     against CPU on every SMOKE config (1e-4) and on llama3.2-1b in f32
-    (1e-3); B1-B6 launch no time.
+    (1e-3); B1-B6 launch no time;
+17. training (``train_phase``): llama3.2-1b's ``CONFIG`` at full width and
+    depth (bf16, remat "dots", random weights from seed 0) takes 8 AdamW
+    steps (``cosine_lr(1e-3, warmup=2, total=8)``) over one repeated batch
+    of 8 x 512: losses and grad norms finite, the first loss within 2e-2 of
+    ``softmax_xent(forward)``, the last below the first; step ms, tokens/s
+    beside the bound, peak bytes, one traced step; one step each under
+    remat "none", "dots" and "full" (loss and grad norm within 1e-6, peak
+    bytes and ms each) and one in f32; one f32 step of every SMOKE config
+    on the card against the CPU (1e-4); ``launch.train.main`` for 6 steps
+    with a checkpoint every 3, and 3 steps resumed to 6, equal at step 6
+    (the launcher on the SMOKE config: ``reduced``); B1-B6 launch no time.
 
 Prints one JSON object per line; the line before the last is the kernel
 table and the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -175,6 +187,8 @@ L2_SHAPES = ((64, 512, 128), (256, 4096, 128), (64, 512, 768), (4096, 4096, 768)
 SELECTIVITIES = (0.003, 0.01, 0.03, 0.1, 0.3)   # query i gets SELECTIVITIES[i % 5]
 BRUTE_SELECTIVITY = 0.003     # <= 256 valid objects at n <= 65536
 WIDE_BEAM, WIDE_BEAM_QUERIES = 300, 8   # parity at a beam wider than B2's registers
+PARITY_QUERIES = 64           # card against CPU on the main path (reduced from 128)
+STREAM_CPU_QUERIES = 16       # card against CPU on the streaming index (reduced from 64)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, outside the tensor cores
 TF32_OPS_PER_S = 495e12       # H100 SXM, dense TF32 on the tensor cores (NVIDIA data sheet)
@@ -1363,7 +1377,8 @@ def stream_phase(n: int, work: Path) -> tuple:
        result of the phase;
     6. ``recover`` into a new index on the card: the same batch's ids and
        distances bit for bit;
-    7. 64 queries on the CPU (plain versions) against the card;
+    7. ``STREAM_CPU_QUERIES`` (16) queries on the CPU (plain versions)
+       against the card;
     8. ``fused=False`` on 128 queries: B4 launches; ids equal the fused
        path's under the tie rule;
     9. an epoch swap: ``build_epoch`` on a thread while auto batches are
@@ -1503,14 +1518,15 @@ def stream_phase(n: int, work: Path) -> tuple:
     del rec
 
     # 7. card against CPU
-    sub = slice(0, 64)
+    sub = slice(0, STREAM_CPU_QUERIES)
     t0 = time.perf_counter()
     ids_c, d_c = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM, plan="auto", device="cpu")
     res["cpu_s"] = time.perf_counter() - t0
     ids_g, d_g = idx.search(qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM, plan="auto")
     bad = mismatches(ids_c, d_c, ids_g, d_g)
     require(not bad, f"streaming card vs CPU: {bad[:5]}")
-    res["cpu_parity"] = {"queries": 64, "ids_equal": bool(np.array_equal(ids_c, ids_g))}
+    res["cpu_parity"] = {"queries": STREAM_CPU_QUERIES,
+                         "ids_equal": bool(np.array_equal(ids_c, ids_g))}
     idx._dg._cache.pop(("device", "cpu"), None)
     idx._dev_mut.pop("cpu", None)
 
@@ -1590,7 +1606,7 @@ def stream_phase(n: int, work: Path) -> tuple:
 SERVE_SHARDS = 4              # the serving phase's round-robin shards
 SERVE_TIMED = 3               # timed batches per (plan, merge) after one warm-up
 SERVE_SUB = 1024              # queries of the unfused and stats steps
-SERVE_CPU_QUERIES = 64        # card against CPU
+SERVE_CPU_QUERIES = 16        # card against CPU (reduced from 64: the run's time limit)
 OVERLOAD_ROUNDS = 8
 SHARDED_STREAM = dict(node_capacity=8192, delta_capacity=1024, edge_capacity=768, M=16, Z=128,
                       K_p=8, build_kwargs=dict(batched=True))
@@ -1783,7 +1799,9 @@ def serve_phase(n: int, vecs, s, t, qv, s_q, t_q, gt_auto, stream_idx, stream_q,
        until it does); the two merges equal under the tie rule; recall@10,
        QPS, p50 and p99, the plan mix per shard; ``fused=False`` (B4) equal
        to the fused step; the stats step's counters equal to the sum of each
-       shard's ``execute_batch(stats=True)``;
+       shard's ``execute_batch(stats=True)``; the auto batch again on a
+       ``data=2`` mesh (its two query slices in turn), bit-equal to the data-1
+       answer, with B1-B3's launches per slice;
     3. ``SERVE_CPU_QUERIES`` queries on the CPU mesh (plain versions) against
        the card;
     4. a one-rank NCCL process group on the card (a FileStore under
@@ -1912,6 +1930,25 @@ def serve_phase(n: int, vecs, s, t, qv, s_q, t_q, gt_auto, stream_idx, stream_q,
         "device_busy_ms": busy, "idle_share": 1.0 - busy / runs["auto/all_gather"]["p50_batch_ms"],
         "top": [[k[:60], round(t, 3), c] for k, (t, c) in
                 sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]]}
+    # the query axis: the auto batch again at data 2 (its two slices in turn
+    # on the card), bit-equal to the data-1 answer
+    want_i, want_d = serve_batch(idx, mesh, qv, s_q, t_q, k=K, beam=BEAM)
+    mesh2 = make_host_mesh(S, data=2, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    ids2, d2 = serve_batch(idx, mesh2, qv, s_q, t_q, k=K, beam=BEAM)
+    data2_s = time.perf_counter() - t0
+    launches["auto/data2"] = dict(ops.LAUNCHES)
+    require(np.array_equal(ids2, want_i) and np.array_equal(d2.view(np.int32), want_d.view(np.int32)),
+            "the data-2 auto batch differs from the data-1 answer")
+    for name in ("filter_dist_gather_packed", "beam_merge", "filter_dist_gather"):
+        require(launches["auto/data2"][name] >= 2, f"{name} not launched on both data-2 slices")
+    res["data2"] = {"mesh": dict(zip(mesh2.axis_names, mesh2.shape)), "slices": mesh2.queries,
+                    "queries_per_slice": BATCH // mesh2.queries, "batch_ms": data2_s * 1e3,
+                    "bit_equal_data1": True, "launches": launches["auto/data2"],
+                    "launches_per_slice": {k: v / mesh2.queries
+                                           for k, v in launches["auto/data2"].items()},
+                    "data1_launches": launches["auto/all_gather"]}
 
     # the unfused step (B4) against the fused one, and the stats step against
     # each shard's own counters, on SERVE_SUB queries snapped to f32
@@ -1991,7 +2028,7 @@ def serve_phase(n: int, vecs, s, t, qv, s_q, t_q, gt_auto, stream_idx, stream_q,
         dist.destroy_process_group()
     res["nccl_one_rank"] = {"world_size": 1, "backend": "nccl", "bit_equal": True,
                             "cases": [f"{p}/{m}" for p, m in want] + ["stats"]}
-    emit({"serve": res})
+    emit({"serve": res, "card": RECORD.get("card")})
     del one, dev
 
     # 5. the streaming server over the streaming phase's index
@@ -2800,10 +2837,11 @@ def fault_phase(stream_q) -> dict:
     return launches
 
 
-BASELINE_ROWS = 2048          # the graph baselines' rows: single-threaded Python builds
+BASELINE_ROWS = 1024          # the graph baselines' rows: single-threaded Python builds
+                              # (reduced from 2048: the run's time limit)
 BASELINE_QUERIES = 256
 BASELINE_EF = 64
-PREFILTER_QUERIES = 1024
+PREFILTER_QUERIES = 512        # of the 1024 with ground truth (reduced: the run's time limit)
 BASELINE_KW = {               # benchmarks/bench_main_search.py's parameters
     "postfilter": dict(M=16, ef_construction=64),
     "acorn": dict(M=16, gamma=6, ef_construction=64),
@@ -2837,8 +2875,8 @@ def baselines_phase(dg, vecs, s, t, auto_q, brute_q, gt: dict) -> dict:
     in the JAX package) beside the card's search; returns the kernel
     launches of the card's runs.
 
-    1. ``PreFilter`` over the whole corpus: on the first 1024 queries of the
-       main path's auto batch and of its forced brute batch, the answers
+    1. ``PreFilter`` over the whole corpus: on the first
+       ``PREFILTER_QUERIES`` (512) queries of the main path's auto batch and of its forced brute batch, the answers
        equal the exact ground truth's, ids and distance bits, up to the
        order of exactly equal distances (the JAX package's PreFilter
        leaves those in ``argpartition``'s order where the ground truth
@@ -2870,7 +2908,7 @@ def baselines_phase(dg, vecs, s, t, auto_q, brute_q, gt: dict) -> dict:
     for name, (qv, s_q, t_q) in (("auto", auto_q), ("brute", brute_q)):
         qv, s_q, t_q = (a[:PREFILTER_QUERIES] for a in (qv, s_q, t_q))
         ids, d, ms = host_search(pre, qv, s_q, t_q, 0)
-        want = gt[name]
+        want = tuple(w[:PREFILTER_QUERIES] for w in gt[name])
         require(all(np.array_equal(a, b) for a, b in zip(tie_sorted(ids, d), tie_sorted(*want))),
                 f"PreFilter differs from the ground truth on the {name} batch")
         swapped = int((ids != want[0]).any(axis=1).sum())
@@ -2886,6 +2924,9 @@ def baselines_phase(dg, vecs, s, t, auto_q, brute_q, gt: dict) -> dict:
                                   "rows_with_exact_ties_reordered": swapped,
                                   "card_brute_batch_ms": card_ms, "ids_equal_card": bool(np.array_equal(ids, c_ids)),
                                   "launches": launches[name]}
+    emit({"reduced": {"prefilter_queries": [1024, PREFILTER_QUERIES],
+                      "why": "the host PreFilter takes about 20 ms a query; the time went to the "
+                             "train phase (17) within the run's time limit"}})
 
     # 2. the graph baselines beside UDG on the same rows
     m = BASELINE_ROWS
@@ -3252,6 +3293,253 @@ def lm_phase(out: Path) -> dict:
     return launches
 
 
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8   # phase 17: one repeated batch of 8 x 512
+TRAIN_REL_TOL = 2e-2          # the first loss against softmax_xent(forward) under no_grad
+REMAT_REL_TOL = 1e-6          # loss and grad norm across the three remat policies
+TRAIN_CPU_TOL = 1e-4          # a SMOKE step on the card against the CPU, f32
+
+
+def train_bound(cfg, n_params: int, b: int, s: int) -> tuple:
+    """The least time of one train step: operations, 3 x the forward's (the
+    layers' and the tied unembedding's products, 2 x parameters x tokens,
+    and the causal attention's QK and PV) at the bf16 tensor-core peak; or
+    bytes, each parameter, gradient, f32 master and moment read and written
+    once by the update. Returns (ms, "operations" or "bytes", ops, bytes)."""
+    norms = (cfg.num_layers * 2 + 1) * cfg.d_model
+    matmul = n_params - norms                     # every matrix, the table as the unembedding
+    attn = cfg.num_layers * 2 * b * cfg.num_heads * s * s * cfg.head_dim
+    ops = 3 * (2 * matmul * b * s + attn)
+    elt = 2 if cfg.dtype == "bfloat16" else 4
+    nbytes = n_params * (2 * elt + elt + 3 * 4 * 2)   # params r+w, grads r, master/mu/nu r+w
+    ms, by = bound(nbytes, ops, BF16_OPS_PER_S)
+    return ms, by, ops, nbytes
+
+
+def train_smoke_card_vs_cpu(arch: str) -> float:
+    """One f32 train step of ``arch``'s SMOKE config on the card and on the
+    CPU from the same parameters and batch: the metrics and every leaf of
+    (params, opt_state) within ``TRAIN_CPU_TOL``; the largest error."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.train import adamw
+    from repro_torch.train.checkpoint import _flatten
+
+    c = dataclasses.replace(get_lm_config(arch, smoke=True), dtype="float32")
+    model = lm.init_params(c, seed=0)
+    cpu_model = lm.LM(c, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    batch = synthetic_batch(np.random.default_rng(3), c, 2, 32)
+    opt = adamw(lr=1e-3)
+    st, st_c = opt.init(model), opt.init(cpu_model)
+    _, _, m = lm.make_train_step(c, opt)(model, st, batch)
+    _, _, m_c = lm.make_train_step(c, opt)(cpu_model, st_c, batch)
+    got, want = _flatten((model, st)), _flatten((cpu_model, st_c))
+    got.update({f"metric/{k}": v.cpu().numpy() for k, v in m.items()})
+    want.update({f"metric/{k}": v.numpy() for k, v in m_c.items()})
+    worst = 0.0
+    for key, w in want.items():
+        require(np.allclose(got[key], w, atol=TRAIN_CPU_TOL, rtol=TRAIN_CPU_TOL),
+                f"{arch} train step, card vs CPU: {key}")
+        worst = max(worst, float(np.max(np.abs(got[key].astype(np.float64) - w))) if w.size else 0.0)
+    return worst
+
+
+def launcher_resume(work: Path) -> dict:
+    """``launch.train.main`` on the card: llama3.2-1b SMOKE for 6 steps with
+    a checkpoint every 3, and again stopped at 3 then resumed to 6; step 6's
+    checkpoints compared (bitwise under ``torch.use_deterministic_algorithms``
+    where that holds, else within 1e-6)."""
+    from repro_torch.launch import train as launcher
+
+    shutil.rmtree(work, ignore_errors=True)
+    base = ["--arch", LM_ARCH, "--smoke", "--ckpt-every", "3"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        whole = launcher.main(base + ["--steps", "6", "--ckpt-dir", str(work / "whole")])
+        whole_s = time.perf_counter() - t0
+        first = launcher.main(base + ["--steps", "3", "--ckpt-dir", str(work / "cut")])
+        resumed = launcher.main(base + ["--steps", "6", "--resume", "--ckpt-dir", str(work / "cut")])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(resumed["start"] == 3, f"the resumed run started at {resumed['start']}")
+    require(all(math.isfinite(v) for v in whole["losses"] + first["losses"] + resumed["losses"]),
+            "a launcher loss is not finite")
+    with np.load(work / "whole" / "step_0000000006" / "arrays.npz") as a, \
+            np.load(work / "cut" / "step_0000000006" / "arrays.npz") as b:
+        require(sorted(a.files) == sorted(b.files), "the two step-6 checkpoints hold other keys")
+        err = max(float(np.max(np.abs(a[k].astype(np.float64) - b[k]))) if a[k].size else 0.0
+                  for k in a.files)
+        bitwise = all(np.array_equal(a[k], b[k]) for k in a.files)
+    require(err <= 1e-6, f"the resumed run's step 6 leaves the uninterrupted run's by {err}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"steps": 6, "ckpt_every": 3, "resumed_from": resumed["start"],
+            "losses_whole": whole["losses"], "losses_resumed": first["losses"] + resumed["losses"],
+            "step6_bitwise": bitwise, "step6_max_abs_err": err,
+            "deterministic_algorithms": True, "whole_run_s": whole_s}
+
+
+def train_phase(out: Path) -> dict:
+    """Phase 17: the training path (``models.steps.make_train_step``,
+    ``train.adamw``, ``train.checkpoint``, ``launch.train``).
+
+    1. llama3.2-1b's ``CONFIG`` at full width and depth (bf16, remat
+       "dots"), random weights from seed 0: ``TRAIN_STEPS`` AdamW steps
+       (``cosine_lr(1e-3, warmup=2, total=8)``) over one repeated
+       ``synthetic_batch`` of 8 x 512 (seed 1); every loss and grad norm
+       finite, the first loss within 2e-2 of ``softmax_xent(forward)``
+       under ``no_grad``, the last below the first; step ms (p50), tokens/s,
+       the bound, peak bytes, and one traced step (device busy, launches,
+       idle share);
+    2. from the trained parameters, two steps each under remat "none",
+       "dots" and "full" (a fresh optimizer state each, deterministic
+       algorithms on): the first's loss and grad norm within 1e-6 of each
+       other, the second's ms, the peak bytes of both; then
+       one step in f32 (TF32 off) from the same parameters widened, its
+       loss beside the bf16 one;
+    3. card against CPU: one f32 step of every SMOKE config within 1e-4;
+    4. the launcher on the card: 6 steps with a checkpoint every 3, and 3
+       steps resumed to 6, equal at step 6;
+    5. B1-B6 launch no time in the phase."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.train import adamw, cosine_lr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    reset_counts()
+    rec: dict = {}
+    cfg = get_lm_config(LM_ARCH)
+    require(cfg.remat == "dots", f"{LM_ARCH}'s remat is {cfg.remat}")
+
+    # 1. eight steps at full width
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, seed=0)
+    opt = adamw(lr=cosine_lr(1e-3, warmup=2, total=TRAIN_STEPS))
+    state = opt.init(model)
+    torch.cuda.synchronize()
+    n_params = lm.param_count(model)
+    rec.update(arch=LM_ARCH, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+               dtype=cfg.dtype, config_remat=cfg.remat, params=n_params, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, steps=TRAIN_STEPS, init_s=time.perf_counter() - t0,
+               state_bytes=torch.cuda.memory_allocated() - base)
+    batch = synthetic_batch(np.random.default_rng(1), cfg, TRAIN_BATCH, TRAIN_SEQ)
+    toks = torch.as_tensor(batch["tokens"], device="cuda")
+    labels = torch.as_tensor(batch["labels"], device="cuda")
+    with torch.no_grad():
+        logits, aux = lm.forward(model, cfg, toks)
+        want0 = lm.softmax_xent(logits, labels).item()
+    del logits
+    step = lm.make_train_step(cfg, opt)
+    losses, gnorms, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, state, batch)[2]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - base
+    require(all(math.isfinite(v) for v in losses + gnorms), f"non-finite loss or grad norm: {losses} {gnorms}")
+    first_rel = abs(losses[0] - want0) / abs(want0)
+    require(first_rel <= TRAIN_REL_TOL,
+            f"the first step's loss {losses[0]} leaves softmax_xent(forward) {want0} by {first_rel}")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    timed = step_ms[1:]                           # the first is warm-up
+    p50 = float(np.percentile(timed, 50))
+    b_ms, b_by, b_ops, b_bytes = train_bound(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    rec.update(forward_loss=want0, first_loss_rel_err=first_rel, losses=losses, grad_norms=gnorms,
+               step_ms=step_ms, step_p50_ms=p50, warmup_step_ms=step_ms[0],
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * 1e3 / p50, bound_ms=b_ms, bound_by=b_by,
+               bound_ops=b_ops, bound_bytes=b_bytes, fraction_of_bound=b_ms / p50)
+    rec["trace"] = lm_trace(lambda: step(model, state, batch), p50)
+
+    # 2. the remat policies and f32, from the trained parameters: two steps
+    # each, the first's loss and grad norm compared, the second timed (its
+    # memory comes from the allocator's cache, as in a training loop)
+    snap = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del state, m
+    torch.cuda.empty_cache()
+    remat = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)   # the embedding's scatter-add
+    for policy in ("none", "dots", "full"):
+        c = dataclasses.replace(cfg, remat=policy)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(snap[n])
+        o = adamw(lr=1e-4)
+        st = o.init(model)
+        pstep = lm.make_train_step(c, o)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m = pstep(model, st, batch)[2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pstep(model, st, batch)
+        torch.cuda.synchronize()
+        remat[policy] = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                         "step_ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_device_bytes": torch.cuda.max_memory_allocated() - base}
+        del st, m
+    torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    for policy in ("dots", "full"):
+        for key in ("loss", "grad_norm"):
+            a, b = remat[policy][key], remat["none"][key]
+            require(abs(a - b) <= REMAT_REL_TOL * abs(b),
+                    f"remat {policy} {key} {a} leaves none's {b}")
+    rec["remat"] = remat
+    del model
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = lm.LM(c32, device="meta").to_empty(device="cuda")
+    with torch.no_grad():
+        for n, p in m32.named_parameters():
+            p.copy_(snap[n])
+    del snap
+    o = adamw(lr=1e-4)
+    st = o.init(m32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = lm.make_train_step(c32, o)(m32, st, batch)[2]
+    torch.cuda.synchronize()
+    f32 = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+           "step_ms": (time.perf_counter() - t0) * 1e3,
+           "peak_device_bytes": torch.cuda.max_memory_allocated() - base}
+    require(math.isfinite(f32["loss"]) and math.isfinite(f32["grad_norm"]), f"f32 step: {f32}")
+    f32["loss_rel_to_bf16"] = abs(f32["loss"] - remat["dots"]["loss"]) / abs(f32["loss"])
+    f32["grad_norm_rel_to_bf16"] = abs(f32["grad_norm"] - remat["dots"]["grad_norm"]) / abs(f32["grad_norm"])
+    rec["f32_step"] = f32
+    del m32, st, m
+    torch.cuda.empty_cache()
+
+    # 3. card against CPU on every SMOKE config
+    t0 = time.perf_counter()
+    rec["card_vs_cpu"] = {"smoke_f32_max_abs_err": {a: train_smoke_card_vs_cpu(a) for a in LM_ARCHS},
+                          "tol": TRAIN_CPU_TOL, "seconds": time.perf_counter() - t0}
+
+    # 4. the launcher, its checkpoints and a resume
+    rec["launcher"] = launcher_resume(out / "train_ckpt")
+
+    # 5. no UDG kernel on this path
+    launches = dict(ops.LAUNCHES)
+    require(not any(launches.values()), f"the train path launched a UDG kernel: {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"reduced": {"train_checkpoint_smoke": [LM_ARCH, f"{LM_ARCH}-smoke"],
+                      "why": "a full-width checkpoint is 19.8 GB of npz (parameters, f32 masters "
+                             "and both moments), beyond the run's time limit; the launcher's "
+                             "checkpoints and resume run on the SMOKE config"}})
+    emit({"train": rec, "card": RECORD.get("card")})
+    (out / "train.json").write_text(json.dumps(rec, indent=1))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=FULL_N, help="corpus size")
@@ -3415,17 +3703,25 @@ def main(argv=None) -> int:
         dg, qv[:1024], s_q[:1024], t_q[:1024], vecs, s, t, gt["auto"])
     RECORD["launches_by_path"] = path_launches
 
-    # 10. parity: the same 128 queries on the CPU (plain versions) and the card
-    sub = slice(0, 128)
+    # 10. parity: the same queries on the CPU (plain versions) and the card
+    sub = slice(0, PARITY_QUERIES)
+    t0 = time.perf_counter()
     ids_c, d_c, pb_c = execute_batch(dg, qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM,
                                      plan="auto", return_plans=True, device="cpu")
+    cpu_s = time.perf_counter() - t0
     ids_g, d_g, pb_g = execute_batch(dg, qv[sub], s_q[sub], t_q[sub], k=K, beam=BEAM,
                                      plan="auto", return_plans=True)
     require(np.array_equal(pb_c.plans, pb_g.plans), "plans differ between the CPU and the card")
     bad = mismatches(ids_c, d_c, ids_g, d_g)
     require(not bad, f"card vs CPU: {bad[:5]}")
+    emit({"reduced": {"cpu_parity_queries": {"main": [128, PARITY_QUERIES],
+                                             "stream": [64, STREAM_CPU_QUERIES],
+                                             "serve": [64, SERVE_CPU_QUERIES]},
+                      "why": "the card-against-CPU checks run the plain versions on the host "
+                             "(about 0.7-1.2 s a query at d 768); the time went to the train "
+                             "phase (17) within the run's time limit"}})
     emit({"parity": {
-        "queries": 128, "plans": {PLAN_NAMES[p]: int((pb_g.plans == p).sum()) for p in PLAN_NAMES},
+        "queries": PARITY_QUERIES, "cpu_s": cpu_s, "plans": {PLAN_NAMES[p]: int((pb_g.plans == p).sum()) for p in PLAN_NAMES},
         "ids_equal": bool(np.array_equal(ids_c, ids_g)),
         "max_abs_err": float(np.max(np.abs(np.where(np.isfinite(d_c), d_c - d_g, 0.0)))),
     }})
@@ -3488,6 +3784,13 @@ def main(argv=None) -> int:
     RECORD["lm_s"] = time.perf_counter() - t0
     RECORD["launches_by_path"]["lm"] = lm_launches
 
+    # 17. training: llama3.2-1b's train step at full width, the remat
+    # policies, card against CPU, the launcher's checkpoints and resume
+    t0 = time.perf_counter()
+    train_launches = train_phase(out)
+    RECORD["train_s"] = time.perf_counter() - t0
+    RECORD["launches_by_path"]["train"] = train_launches
+
     # kernel -> (source, the TPU kernel's pallas_call, the path its launches count on)
     replaces = {
         "filter_dist_gather_packed": ("src/repro_torch/kernels/csrc/filter_dist.cu",
@@ -3521,6 +3824,8 @@ def main(argv=None) -> int:
             "fault_launches": {"chaos": fault_launches[name],
                                "full_width": FAULT["compaction"]["launches"][name]},
             "lm_launches": lm_launches[name],
+            "train_launches": train_launches[name],
+            "serve_data2_launches": serve_launches["auto/data2"][name],
             "ok": True,
         })
     RECORD["seconds"] = time.perf_counter() - t_all

@@ -8,10 +8,11 @@ smoke tests). ``repro_torch.configs.registry`` resolves ``--arch`` names.
 
 Three fields are the reference's knobs for a compiled, sharded program and
 are kept so that the two packages' configs stay equal field for field; in
-one torch process they change no value:
+one torch process none of them changes a value:
 
-- ``remat``: what the JAX stack rematerialises in its backward pass; the
-  port's serving path builds no backward (training is a later slice);
+- ``remat``: what the backward pass recomputes instead of keeping
+  (``models.model._maybe_remat``: ``none``, ``dots``, ``full``); it changes
+  memory, never a value;
 - ``gather_weights``: a sharding constraint at each weight's use; on one
   device the identity;
 - ``unroll_layers``: a Python-unrolled stack instead of ``lax.scan`` (the

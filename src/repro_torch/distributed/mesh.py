@@ -1,21 +1,30 @@
-"""The serving mesh: how a sharded index's shards map onto processes.
+"""The serving mesh: how a sharded index's shards and a batch's queries map
+onto processes.
 
-The JAX package serves through ``shard_map`` over a ``(data, model)``
-device mesh (``launch/mesh.make_host_mesh``). The port's ``ShardMesh``
-keeps what serving needs of it, the ``model`` axis (one database shard per
-position), in one of two executions of the same step:
+The JAX package serves through ``shard_map`` over a ``(data, model)`` (or
+``(pod, data, model)``) device mesh (``launch/mesh.py``): the database is
+split over ``model``, one shard a position, and the query batch over the
+query axes ``("pod", "data")``, pod major (``P(("pod", "data"))``). The
+port's ``ShardMesh`` has the same three extents, in one of two executions
+of the same step:
 
-* **single process** (``group=None``): all ``model`` shards lie on one
-  device, stacked on a leading shard axis; the serving step runs each
-  shard's search in shard order and merges on that device;
-* **process group** (``group`` a ``torch.distributed`` group of ``model``
-  ranks): rank r holds shard r on its own device; the cross-shard merge is
-  ``all_gather`` (or ``isend``/``irecv`` for the tournament) and the
-  counters' sum ``all_reduce``.
+* **single process** (``group=None``): every shard lies on one device,
+  stacked on a leading shard axis, and the batch is cut into
+  ``pod * data`` slices that run in turn; each slice searches every shard in
+  shard order and merges on that device, and the slices' answers are
+  concatenated in slice order. This form exists to hold the other one bit
+  for bit;
+* **process group**: a world of W = pod * data * model ranks. Rank r sits
+  at (pod, data, model) in row-major order: it holds shard ``r % model``
+  and serves query slice ``r // model``. The cross-shard merge
+  (``all_gather``, or ``isend``/``irecv`` for the tournament) and the
+  counters' ``all_reduce`` run over the rank's **model subgroup** (the
+  ranks of its query slice); the merged answer is then gathered over its
+  **query subgroup** (the ranks of its shard, one per slice), so every rank
+  returns the whole batch.
 
-The query axes (``data``, ``pod``) are 1: every rank serves the whole
-batch. ``make_host_mesh`` builds the single-process form,
-``make_process_mesh`` the process-group form over an initialized group.
+``make_host_mesh`` builds the single-process form, ``make_process_mesh``
+the process-group form over an initialized default group.
 """
 from __future__ import annotations
 
@@ -32,7 +41,25 @@ from repro_torch.device import resolve_device
 class ShardMesh:
     model: int                   # number of database shards
     device: torch.device         # where this process's shards lie
-    group: Optional[object] = None   # torch.distributed group of `model` ranks
+    group: Optional[object] = None   # process-group form: this rank's model subgroup
+    data: int = 1                # query slices within a pod
+    pod: int = 1                 # pods (query slices = pod * data)
+    query_group: Optional[object] = None   # process-group form: the ranks of this shard
+    query_index: int = 0         # process-group form: this rank's query slice
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The reference's axis names: ``pod`` only when there are pods."""
+        return ("pod", "data", "model") if self.pod > 1 else ("data", "model")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.pod, self.data, self.model) if self.pod > 1 else (self.data, self.model)
+
+    @property
+    def queries(self) -> int:
+        """Query slices of a batch: the product of the query axes."""
+        return self.pod * self.data
 
     @property
     def rank(self) -> int:
@@ -46,21 +73,68 @@ class ShardMesh:
             return tuple(range(self.model))
         return (self.rank,)
 
+    @property
+    def local_queries(self) -> Tuple[int, ...]:
+        """The query slices this process serves, in slice order."""
+        if self.group is None:
+            return tuple(range(self.queries))
+        return (self.query_index,)
 
-def make_host_mesh(model_parallel: int = 1, device=None) -> ShardMesh:
-    """Single-process mesh of ``model_parallel`` shards on ``device``
-    (``None`` = the card)."""
-    if model_parallel < 1:
-        raise ValueError(f"model_parallel={model_parallel} < 1")
-    return ShardMesh(model=int(model_parallel), device=resolve_device(device))
+
+def _extent(name: str, v: int) -> int:
+    if int(v) < 1:
+        raise ValueError(f"{name}={v} < 1")
+    return int(v)
 
 
-def make_process_mesh(group=None, device=None) -> ShardMesh:
-    """Process-group mesh: one shard per rank of ``group`` (``None`` = the
-    default group, which must be initialized), this rank's shard on
-    ``device`` (``None`` = the card)."""
+def make_host_mesh(model_parallel: int = 1, *, data: int = 1, pod: int = 1,
+                   device=None) -> ShardMesh:
+    """Single-process mesh of ``model_parallel`` shards and ``pod * data``
+    query slices on ``device`` (``None`` = the card).
+
+    The reference's ``make_host_mesh(model_parallel)`` takes its data extent
+    from the host's device count (``len(jax.devices()) // model_parallel``);
+    one torch process has one device, so ``data`` (and ``pod``) are
+    keywords here, 1 by default."""
+    return ShardMesh(model=_extent("model_parallel", model_parallel),
+                     device=resolve_device(device), data=_extent("data", data),
+                     pod=_extent("pod", pod))
+
+
+def make_process_mesh(group=None, *, model: Optional[int] = None, pod: int = 1,
+                      device=None) -> ShardMesh:
+    """Process-group mesh over ``group`` (``None`` = the default group,
+    which must be initialized), this rank's shard on ``device`` (``None`` =
+    the card). ``model`` shards (``None``: the whole world over ``pod``
+    pods, data 1); data = W / (pod * model).
+
+    Every rank of the default group must call this, in the same order as
+    its other ``new_group`` calls: the subgroups are created by every rank,
+    those it is not in included, as ``torch.distributed.new_group``
+    requires."""
     if not dist.is_initialized():
         raise RuntimeError("torch.distributed is not initialized")
     group = group if group is not None else dist.group.WORLD
-    return ShardMesh(model=dist.get_world_size(group), device=resolve_device(device),
-                     group=group)
+    world = dist.get_world_size(group)
+    pod = _extent("pod", pod)
+    model = _extent("model", model if model is not None else world // pod)
+    if world % (pod * model):
+        raise ValueError(f"a world of {world} ranks is not pod {pod} x data x model {model}")
+    data = world // (pod * model)
+    dev = resolve_device(device)
+    if pod * data == 1:
+        return ShardMesh(model=model, device=dev, group=group)
+    ranks = [dist.get_global_rank(group, i) for i in range(world)]
+    me = dist.get_rank(group)
+    q_idx, m_idx = divmod(me, model)
+    model_group = query_group = None
+    for q in range(pod * data):          # every rank creates every subgroup, in one order
+        g = dist.new_group([ranks[q * model + m] for m in range(model)])
+        if q == q_idx:
+            model_group = g
+    for m in range(model):
+        g = dist.new_group([ranks[q * model + m] for q in range(pod * data)])
+        if m == m_idx:
+            query_group = g
+    return ShardMesh(model=model, device=dev, group=model_group, data=data, pod=pod,
+                     query_group=query_group, query_index=q_idx)

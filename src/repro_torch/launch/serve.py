@@ -1,9 +1,13 @@
 """Serving launcher: build a sharded UDG and serve batched interval-predicate
 queries through ``serve_batch`` (the JAX package's ``launch/serve.py``).
 
+The mesh comes from ``launch.mesh.make_host_mesh``: ``--shards`` database
+shards on the ``model`` axis and ``--data`` query slices, each batch split
+over them (``--batch`` must be a multiple of ``--data``).
+
 Example (the card; ``--device cpu`` runs the plain PyTorch versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --n 4096 --dim 32 \
-    --shards 4 --relation overlap --selectivity 0.05 --queries 64
+    --shards 4 --data 2 --relation overlap --selectivity 0.05 --queries 64
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from repro_torch.data import (
     make_queries_vectors,
     recall_at_k,
 )
-from repro_torch.distributed.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.serve import RequestBatcher, build_sharded_index, serve_batch
 
 
@@ -63,6 +67,8 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--dim", type=int, default=32)
     ap.add_argument("--shards", type=int, default=4)
+    ap.add_argument("--data", type=int, default=1,
+                    help="query slices of each batch (the mesh's data axis)")
     ap.add_argument("--relation", default="containment")
     ap.add_argument("--selectivity", type=float, default=0.05)
     ap.add_argument("--queries", type=int, default=64)
@@ -79,8 +85,8 @@ def main(argv=None) -> None:
                          "the plain PyTorch versions)")
     args = ap.parse_args(argv)
 
-    mesh = make_host_mesh(model_parallel=args.shards, device=args.device)
-    print(f"building sharded UDG: n={args.n} shards={args.shards} "
+    mesh = make_host_mesh(model_parallel=args.shards, data=args.data, device=args.device)
+    print(f"building sharded UDG: n={args.n} shards={args.shards} data={args.data} "
           f"device={mesh.device} ...")
     vecs, s, t = make_dataset(args.n, args.dim, seed=args.seed)
     t0 = time.perf_counter()

@@ -7,6 +7,9 @@ superblock stacks); ``params_from_numpy`` takes that tree with numpy leaves
 ``ml_dtypes`` bfloat16 arrays) and returns an ``LM`` whose parameter
 ``layers.<l>.attn.wq`` (or ``layers.<g>.<p>...``) is that leaf's slice. The
 orientation is kept (``x @ w``, ``[in, out]``), so nothing is transposed.
+``params_to_numpy`` is its inverse: it restacks the layers into the
+reference's ``[L, ...]`` or ``[G, P, ...]`` leaves (``stack_index`` and
+``stack_rows``, which the checkpoint uses for the optimizer's moments too).
 """
 from __future__ import annotations
 
@@ -75,3 +78,54 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, *, device=None) -> LM:
     for name, a in got.items():
         params[name].copy_(_to_torch(a))
     return model
+
+
+def stack_index(name: str):
+    """A parameter name's nested key path in the reference's tree and its
+    layer index: ``layers.3.attn.wq`` -> (("layers", "attn", "wq"), (3,)),
+    ``layers.0.2.norm.scale`` -> (("layers", "norm", "scale"), (0, 2)),
+    ``embed.table`` -> (("embed", "table"), ())."""
+    parts = name.split(".")
+    return (tuple(c for c in parts if not c.isdigit()),
+            tuple(int(c) for c in parts if c.isdigit()))
+
+
+def stack_rows(rows: Mapping[tuple, np.ndarray], what: str) -> np.ndarray:
+    """One array from ``{layer index: array}``: the whole leaf for the
+    single index (), else the layers stacked on their leading axes."""
+    if list(rows) == [()]:
+        return rows[()]
+    lead = tuple(max(i[d] for i in rows) + 1 for d in range(len(next(iter(rows)))))
+    if len(rows) != int(np.prod(lead)):
+        raise ValueError(f"{what}: layer stack {sorted(rows)} is not complete")
+    first = next(iter(rows.values()))
+    out = np.empty(lead + first.shape, first.dtype)
+    for i, a in rows.items():
+        out[i] = a
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:   # the 16-bit patterns as an ml_dtypes array
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def params_to_numpy(model: LM) -> Dict:
+    """The reference's parameter tree (numpy leaves, the layers stacked
+    into ``[L, ...]`` / ``[G, P, ...]``; bf16 as ``ml_dtypes.bfloat16``)
+    of ``model``: the inverse of ``params_from_numpy``, exact."""
+    groups: Dict[tuple, Dict[tuple, np.ndarray]] = {}
+    for name, t in model.named_parameters():
+        path, idx = stack_index(name)
+        groups.setdefault(path, {})[idx] = _to_numpy(t)
+    tree: Dict = {}
+    for path, rows in groups.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = stack_rows(rows, "/".join(path))
+    return tree

@@ -19,8 +19,32 @@ from torch import nn
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised parameter without gradients: this package serves."""
+    """An uninitialised parameter, without gradients by default: serving
+    builds no graph (a forward outside ``no_grad`` keeps none either).
+    Training turns them on (``LM.requires_grad_(True)``, done by
+    ``steps.make_train_step``'s step)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm(x, w, out_dtype=float32)`` with a backward (torch has no
+    derivative for the f32-out product): the f32 cotangent is rounded to
+    the operands' dtype and both products run on the tensor cores with f32
+    sums, their results in the operands' dtype (the precision the
+    parameters' gradients are kept in)."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        gx = torch.mm(g, w.T) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x2.T, g) if ctx.needs_input_grad[1] else None
+        return gx, gw
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -28,10 +52,15 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out, whatever the operands' dtype: the reference's
     ``preferred_element_type=jnp.float32`` (a bf16 ``torch.matmul`` would
     round its output to bf16). On the card a bf16 product is one cuBLAS call
-    with an f32 output; elsewhere the operands are widened to f32 first
-    (exact), which on the card would copy the whole table a call."""
+    with an f32 output (``_MatmulF32`` when a gradient is needed); elsewhere
+    the operands are widened to f32 first (exact), which on the card would
+    copy the whole table a call."""
     if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _MatmulF32.apply(x2, w)
+        else:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
         return out.reshape(x.shape[:-1] + (w.shape[-1],))
     return torch.matmul(x.float(), w.float())
 

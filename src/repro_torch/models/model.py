@@ -18,15 +18,20 @@ musicgen sums one embedding table per codebook and emits per-codebook logits
 from untied heads [K, D, V]; the others tie the unembedding to the table.
 Logits are f32 from operands in the model's dtype. The layers run in a
 Python loop (the reference's ``lax.scan``; ``cfg.unroll_layers`` gives the
-same values there and changes nothing here).
+same values there and changes nothing here). ``_maybe_remat`` wraps each
+layer block (a superblock for gemma3 and zamba2) where the reference wraps
+its scan body: ``cfg.remat`` changes what the backward pass keeps, never a
+value.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
@@ -203,6 +208,52 @@ def _ssm_block(cfg: ModelConfig, p, x):
     return _ssm_block_state(cfg, p, x)[0]
 
 
+# --- remat -------------------------------------------------------------------------
+
+# the 2-D products whose outputs the "dots" policy keeps: every projection
+# (``x @ w`` lowers to ``mm``), ``addmm``, and ``matmul_f32``'s f32-out ``mm``
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                         torch.ops.aten.mm.dtype})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` (one layer block) under ``cfg.remat``'s checkpointing:
+
+    * ``"none"``: no checkpointing, the backward keeps every activation;
+    * ``"dots"``: selective checkpointing that keeps the outputs of the 2-D
+      products (``_SAVED_DOTS``) and recomputes everything else, the
+      batched attention einsums (``bmm``) included. This is the nearest
+      counterpart of ``dots_with_no_batch_dims_saveable``, and departs from
+      it in two ways: the policy sees torch's operators, not XLA's
+      ``dot_general`` (a product with batch dimensions is saved there only
+      when it has none, here only when it lowers to ``mm``), and what a
+      recomputed block keeps alive between its forward and backward is
+      torch's choice, not XLA's;
+    * anything else (``"full"``): ``torch.utils.checkpoint`` of the whole
+      block, which keeps its inputs and recomputes the rest.
+
+    Outside a gradient (under ``no_grad``, or when the block's activation
+    input needs none: the serving path, whose parameters need none) ``fn``
+    runs as it is. Checkpointing recomputes the same operators on the same
+    inputs, so the values and gradients are those of ``"none"``."""
+    if cfg.remat == "none":
+        return fn
+
+    def block(h, *args):
+        if not (torch.is_grad_enabled() and h.requires_grad):
+            return fn(h, *args)
+        if cfg.remat == "dots":
+            return checkpoint(fn, h, *args, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy))
+        return checkpoint(fn, h, *args, use_reentrant=False)
+
+    return block
+
+
 # --- forward ------------------------------------------------------------------------
 
 
@@ -236,20 +287,31 @@ def forward(params, cfg: ModelConfig, tokens, positions=None) -> Tuple[torch.Ten
     G, P = cfg.layer_groups()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
+        body = _maybe_remat(lambda h, lp: _ssm_block(cfg, lp, h), cfg)
         for lp in params.layers:
-            x = _ssm_block(cfg, lp, x)
+            x = body(x, lp)
     elif cfg.is_hybrid:
-        for group in params.layers:
+        def hybrid(h, group):
             for lp in group:
-                x = _ssm_block(cfg, lp, x)
-            x, _ = _attn_block(cfg, params.shared_attn, x, positions, None)
-    elif cfg.attn_pattern == "local_global":
+                h = _ssm_block(cfg, lp, h)
+            return _attn_block(cfg, params.shared_attn, h, positions, None)[0]
+
+        body = _maybe_remat(hybrid, cfg)
         for group in params.layers:
+            x = body(x, group)
+    elif cfg.attn_pattern == "local_global":
+        def local_global(h, group):
             for i, lp in enumerate(group):
-                x, _ = _attn_block(cfg, lp, x, positions, cfg.window_size if i < P - 1 else None)
+                h, _ = _attn_block(cfg, lp, h, positions, cfg.window_size if i < P - 1 else None)
+            return h
+
+        body = _maybe_remat(local_global, cfg)
+        for group in params.layers:
+            x = body(x, group)
     else:
+        body = _maybe_remat(lambda h, lp: _attn_block(cfg, lp, h, positions, None), cfg)
         for lp in params.layers:
-            x, a = _attn_block(cfg, lp, x, positions, None)
+            x, a = body(x, lp)
             aux = aux + a
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return _logits(params, cfg, x), aux

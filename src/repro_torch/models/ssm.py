@@ -297,7 +297,9 @@ def _ssd_scan(xh, dt, A, Bc, Cc, chunk):
     CB = torch.einsum("bcqd,bckd->bcqk", Ccc, Bcc)     # [B,NC,Q,Q]
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,NC,Q,Q,nh]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(seg), 0.0)
+    # exp of the masked exponent, not a masked exp: above the diagonal seg > 0
+    # can overflow to inf, and where(mask, inf, 0)'s gradient is 0 * inf = NaN
+    L = torch.exp(torch.where(mask[None, None, :, :, None], seg, float("-inf")))
     M = CB[..., None] * L * dtc[:, :, None, :, :]      # [B,NC,Q,Q,nh]
     y_intra = torch.einsum("bcqkh,bckhi->bcqhi", M, xc)
 

@@ -1,10 +1,16 @@
-"""Serving steps (the JAX package's ``models/steps.py``, its prefill and
-decode half):
+"""Train, prefill and decode steps (the JAX package's ``models/steps.py``):
 
+  softmax_xent       mean cross-entropy of f32 logits
+  loss_fn            forward + CE loss + the MoE aux loss
+  make_train_step    forward + loss + gradients + the optimizer's update
   prefill_step       full-sequence forward that also fills the decode state;
                      returns the last position's logits only
   init_decode_state  a zeroed decode state of length ``s_max``
   decode_step        one token against the decode state (KV cache / SSM state)
+
+The train step updates the parameters and the optimizer state in place and
+returns them, where the reference returns new ones and donates the old
+(``donate_argnums``). Logits and the loss are f32, as the reference's.
 
 ``decode_step`` updates the state's tensors in place and returns the same
 dict: a functional copy would rewrite the whole [L, B, S_max, KV, hd] cache
@@ -37,7 +43,57 @@ from repro_torch.models.model import (
     _logits,
     _positions,
     _ssm_block_state,
+    forward,
 )
+
+
+# --- loss and the train step ---------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE; logits [..., V] (computed in f32), labels [...] int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, *, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict]:
+    logits, aux = forward(params, cfg, tokens)
+    loss = softmax_xent(logits, labels)
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux}
+
+
+def make_train_step(cfg: ModelConfig, optimizer):
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` with ``metrics`` the f32 tensors ``loss``, ``aux``, ``total``
+    and ``grad_norm`` (no host sync).
+
+    ``params`` is an ``LM``; the step turns its gradients on
+    (``requires_grad_(True)``) and updates it and ``opt_state`` in place
+    through ``optimizer.update(grads, opt_state, params)`` (the protocol
+    of ``repro_torch.train.adamw``). ``batch`` holds ``tokens`` and
+    ``labels`` (numpy or tensors), moved to the parameters' device."""
+
+    def train_step(params, opt_state, batch):
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        dev = next(iter(named.values())).device
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        labels = torch.as_tensor(batch["labels"], device=dev)
+        with torch.enable_grad():
+            total, metrics = loss_fn(params, cfg, tokens, labels)
+            grads = torch.autograd.grad(total, list(named.values()), materialize_grads=True)
+        gnorm = optimizer.update(dict(zip(named, grads)), opt_state, params)
+        metrics = {name: v.detach() for name, v in metrics.items()}
+        return params, opt_state, dict(metrics, total=total.detach(), grad_norm=gnorm)
+
+    return train_step
+
+
+# --- prefill and decode ----------------------------------------------------------------
 
 
 def _stack(states):

@@ -8,7 +8,9 @@ Layout (classic shard-per-device vector search):
     a union is the merge of per-shard top-k, so per-shard indexes are exact
     w.r.t. the union);
   * shard-local arrays (graph, canonical grids, entry tables) are stacked on
-    a leading shard dim; every shard sees the whole query batch;
+    a leading shard dim; the query batch is split over the query axes
+    ``("pod", "data")`` into ``pod * data`` equal slices, pod major (the
+    reference's ``P(("pod", "data"))``), and every shard sees each slice;
   * canonicalization (Lemma 1) runs per shard on shard-local f32 U_X/U_Y;
   * per-shard top-k results are merged across shards: ``all_gather``
     (concatenate in shard order, one stable sort on distance) or a
@@ -19,16 +21,28 @@ A step built by ``make_serving_step`` / ``make_planned_serving_step`` /
 ``make_streaming_serving_step`` runs in either execution of its mesh
 (``repro_torch.distributed.mesh``):
 
-  * single process: the arrays carry every shard on the leading axis, the
-    step searches them in shard order on the mesh's device and merges
-    there; the result is shard 0's view of the merge (the reference treats
-    the merged output as replicated, and reads it from the first shard);
-  * process group: the arrays carry this rank's shard alone; the merge is
-    ``dist.all_gather``, or ``isend``/``irecv`` with partner
-    ``rank ^ step`` for the tournament, and the counters' sum
-    ``dist.all_reduce``. Each rank returns its own view, bit-equal to the
+  * single process: the arrays carry every shard on the leading axis; the
+    query slices run in turn, each searching the shards in shard order on
+    the mesh's device and merging there, and their answers are
+    concatenated in slice order; the result is shard 0's view of the merge
+    (the reference treats the merged output as replicated, and reads it
+    from the first shard);
+  * process group: the arrays carry this rank's shard alone and the rank
+    searches its own query slice; the merge is ``dist.all_gather``, or
+    ``isend``/``irecv`` with partner ``rank ^ step`` for the tournament,
+    and the counters' sum ``dist.all_reduce``, all over the rank's model
+    subgroup; the merged slices are then gathered over its query subgroup.
+    Each rank returns its own view of the whole batch, bit-equal to the
     single-process step's view of that shard (same shards, same
     concatenation order, same stable sort).
+
+A batch the query axes do not divide raises ``ValueError`` (the reference's
+``shard_map`` refuses it too); nothing is padded. A query's answer does not
+depend on the other queries of its slice: the planner plans each row alone,
+and an iteration after a row has finished is a no-op for it. One
+batch-level quantity does depend on a slice's composition: the search
+loop's iteration count (``LOOP_STATS``), which runs until the slice's
+slowest row stops; the ids, distances and per-query counters are the same.
 
 Sort keys are ``d + 0.0`` (-0.0 ties +0.0) and every sort is stable, as
 ``lax.sort(num_keys=1)`` is. Nothing is compiled per shape, so the steps
@@ -501,6 +515,46 @@ def _run_shards(mesh, shard_fn, *, k: int, merge: str, stats: bool):
     return merged
 
 
+def _tree_map(fn, outs: list):
+    """``fn`` over the list of tensors at each position of the step outputs
+    ``outs`` (tuples of tensors and of ``{field: tensor}`` dicts)."""
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return fn(outs)
+    if isinstance(first, dict):
+        return {key: _tree_map(fn, [o[key] for o in outs]) for key in first}
+    return tuple(_tree_map(fn, [o[i] for o in outs]) for i in range(len(first)))
+
+
+def _query_slices(mesh, B: int) -> List[slice]:
+    """The batch rows of this process's query slices; raises when the query
+    axes do not divide the batch."""
+    Q = mesh.queries
+    if B % Q:
+        raise ValueError(f"a batch of {B} queries does not split over the query axes "
+                         f"(pod {mesh.pod} x data {mesh.data} = {Q} slices)")
+    n = B // Q
+    return [slice(i * n, (i + 1) * n) for i in mesh.local_queries]
+
+
+def _gather_slices(ts: list, group, slices: int) -> torch.Tensor:
+    t = ts[0].contiguous()
+    parts = [torch.empty_like(t) for _ in range(slices)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=0)
+
+
+def _run_queries(mesh, B: int, run):
+    """``run(rows)`` for each local query slice, the answers concatenated in
+    slice order, then gathered over the query subgroup in the process-group
+    form: every rank returns the whole batch."""
+    outs = [run(sl) for sl in _query_slices(mesh, B)]
+    out = outs[0] if len(outs) == 1 else _tree_map(lambda ts: torch.cat(ts, dim=0), outs)
+    if mesh.query_group is not None:
+        out = _tree_map(lambda ts: _gather_slices(ts, mesh.query_group, mesh.queries), [out])
+    return out
+
+
 def _global_ids(ids_l, d_l, shard: int, n_l: int):
     gids = torch.where(ids_l >= 0, ids_l + shard * n_l, -1)
     return gids, torch.where(ids_l >= 0, d_l, INF)
@@ -545,19 +599,23 @@ def make_serving_step(
             raise ValueError("int8_vectors=True needs scales")
         q, xq, yq = _query(q, dev), _query(xq, dev), _query(yq, dev)
 
-        def shard_fn(j, sh):
-            states, ep = _canonicalize_local(UX[j], UY[j], num_y[j], ent[j], enty[j], xq, yq)
-            sc = scales[j] if scales is not None else None
-            norms = effective_norms(vec[j], sc) if int8_vectors else nrm[j]
-            out = search_core(
-                vec[j], nbr[j], _oracle_labels(lab[j], fused), q, states, ep,
-                k=k, beam=beam, max_iters=max_iters, expand=expand,
-                norms=norms, scales=sc, fused=fused, stats=stats,
-            )
-            gids, d_l = _global_ids(out[0], out[1], sh, vec.shape[1])
-            return (gids, d_l, per_query_dict(out[2])) if stats else (gids, d_l)
+        def run(rows):
+            def shard_fn(j, sh):
+                states, ep = _canonicalize_local(UX[j], UY[j], num_y[j], ent[j], enty[j],
+                                                 xq[rows], yq[rows])
+                sc = scales[j] if scales is not None else None
+                norms = effective_norms(vec[j], sc) if int8_vectors else nrm[j]
+                out = search_core(
+                    vec[j], nbr[j], _oracle_labels(lab[j], fused), q[rows], states, ep,
+                    k=k, beam=beam, max_iters=max_iters, expand=expand,
+                    norms=norms, scales=sc, fused=fused, stats=stats,
+                )
+                gids, d_l = _global_ids(out[0], out[1], sh, vec.shape[1])
+                return (gids, d_l, per_query_dict(out[2])) if stats else (gids, d_l)
 
-        return _run_shards(mesh, shard_fn, k=k, merge=merge, stats=stats)
+            return _run_shards(mesh, shard_fn, k=k, merge=merge, stats=stats)
+
+        return _run_queries(mesh, q.shape[0], run)
 
     return step
 
@@ -578,9 +636,10 @@ def make_planned_serving_step(
 
     Two extra inputs carry the host planning result (``plan_sharded_batch``,
     restricted to the mesh's local shards): per-shard plans ``[S, B]`` and
-    shard-local brute-path valid ids ``[S, B, V]``. Each shard runs the
-    three-way executor (``repro_torch.exec.planned_exec_core``) and the
-    usual cross-shard top-k merge.
+    shard-local brute-path valid ids ``[S, B, V]``, split along B like the
+    queries (the reference's ``P("model", ("pod", "data"))``). Each shard
+    runs the three-way executor (``repro_torch.exec.planned_exec_core``) and
+    the usual cross-shard top-k merge.
 
     Signature of the returned fn:
       (vectors, nbr, labels, norms, U_X, U_Y, num_y, entry_node,
@@ -598,21 +657,26 @@ def make_planned_serving_step(
         plans = _query(plans, dev, np.int32)
         bf_ids = _query(bf_ids, dev, np.int32)
 
-        def shard_fn(j, sh):
-            states, ep = _canonicalize_local(UX[j], UY[j], num_y[j], ent[j], enty[j], xq, yq)
-            ep_graph = torch.where(plans[j] == int(QueryPlan.GRAPH), ep, -1)
-            ep_wide = torch.where(plans[j] == int(QueryPlan.GRAPH_WIDE), ep, -1)
-            ids_l, d_l = planned_exec_core(
-                vec[j], nbr[j], _oracle_labels(lab[j], fused), q, states,
-                ep_graph, ep_wide, bf_ids[j], plans[j],
-                k=k, beam=beam, wide_beam=wide_beam, max_iters=max_iters,
-                wide_max_iters=max_iters * config.wide_beam_scale,
-                expand=expand, wide_expand=wide_expand, norms=nrm[j],
-                fused=fused,
-            )
-            return _global_ids(ids_l, d_l, sh, vec.shape[1])
+        def run(rows):
+            def shard_fn(j, sh):
+                states, ep = _canonicalize_local(UX[j], UY[j], num_y[j], ent[j], enty[j],
+                                                 xq[rows], yq[rows])
+                pl = plans[j, rows]
+                ep_graph = torch.where(pl == int(QueryPlan.GRAPH), ep, -1)
+                ep_wide = torch.where(pl == int(QueryPlan.GRAPH_WIDE), ep, -1)
+                ids_l, d_l = planned_exec_core(
+                    vec[j], nbr[j], _oracle_labels(lab[j], fused), q[rows], states,
+                    ep_graph, ep_wide, bf_ids[j, rows], pl,
+                    k=k, beam=beam, wide_beam=wide_beam, max_iters=max_iters,
+                    wide_max_iters=max_iters * config.wide_beam_scale,
+                    expand=expand, wide_expand=wide_expand, norms=nrm[j],
+                    fused=fused,
+                )
+                return _global_ids(ids_l, d_l, sh, vec.shape[1])
 
-        return _run_shards(mesh, shard_fn, k=k, merge=merge, stats=False)
+            return _run_shards(mesh, shard_fn, k=k, merge=merge, stats=False)
+
+        return _run_queries(mesh, q.shape[0], run)
 
     return step
 
@@ -657,6 +721,7 @@ def serve_batch(
     )
     if mesh.model != idx.num_shards:
         raise ValueError(f"mesh has {mesh.model} shards, the index {idx.num_shards}")
+    _query_slices(mesh, q.shape[0])      # refuse an undivided batch before planning it
     rel = get_relation(idx.relation)
     xq, yq = rel.query_map(
         np.asarray(s_q, np.float64), np.asarray(t_q, np.float64)
@@ -963,23 +1028,27 @@ def make_streaming_serving_step(
         q, xq, yq = _query(q, dev), _query(xq, dev), _query(yq, dev)
         dstate = _query(dstate, dev, np.int32)
 
-        def shard_fn(j, sh):
-            states, ep = _canonicalize_local(UX[j], UY[j], num_y[j], ent[j], enty[j], xq, yq)
-            core = search_core(
-                vec[j], nbr[j], _oracle_labels(lab[j], fused), q, states, ep,
-                k=beam, beam=beam, max_iters=max_iters, expand=expand,
-                norms=nrm[j], fused=fused, stats=stats,
-            )
-            merged = two_tier_merge(
-                core[0], core[1], live[j], ext[j], q, dvec[j], dlab[j],
-                dids[j], dext[j], dstate, k=k, fused=fused,
-                st=core[2] if stats else None,
-            )
-            if stats:
-                return merged[0], merged[1], per_query_dict(merged[2])
-            return merged
+        def run(rows):
+            def shard_fn(j, sh):
+                states, ep = _canonicalize_local(UX[j], UY[j], num_y[j], ent[j], enty[j],
+                                                 xq[rows], yq[rows])
+                core = search_core(
+                    vec[j], nbr[j], _oracle_labels(lab[j], fused), q[rows], states, ep,
+                    k=beam, beam=beam, max_iters=max_iters, expand=expand,
+                    norms=nrm[j], fused=fused, stats=stats,
+                )
+                merged = two_tier_merge(
+                    core[0], core[1], live[j], ext[j], q[rows], dvec[j], dlab[j],
+                    dids[j], dext[j], dstate[rows], k=k, fused=fused,
+                    st=core[2] if stats else None,
+                )
+                if stats:
+                    return merged[0], merged[1], per_query_dict(merged[2])
+                return merged
 
-        return _run_shards(mesh, shard_fn, k=k, merge="all_gather", stats=stats)
+            return _run_shards(mesh, shard_fn, k=k, merge="all_gather", stats=stats)
+
+        return _run_queries(mesh, q.shape[0], run)
 
     return step
 

@@ -131,3 +131,25 @@ def test_default_device_is_the_card():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+TRAIN = """
+import sys
+import repro_torch.train, repro_torch.launch.train, repro_torch.launch.mesh
+from repro_torch.train import CheckpointManager, adamw, cosine_lr, load_checkpoint, save_checkpoint
+from repro_torch.train.optimizer import AdamWState
+from repro_torch.launch.train import main, synthetic_batch
+from repro_torch.launch.mesh import data_axes, make_host_mesh, make_production_mesh, mesh_axis_names
+from repro_torch.models import loss_fn, make_train_step, params_to_numpy, softmax_xent
+import torch
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(",".join(bad) or "none", torch.cuda.is_initialized(),
+      torch.distributed.is_available() and torch.distributed.is_initialized())
+"""
+
+
+def test_train_and_launchers_import_no_jax_and_touch_no_device():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", TRAIN], env=env, capture_output=True,
+                         text=True, check=True).stdout.split()
+    assert out == ["none", "False", "False"], f"loaded: {out}"
