@@ -135,6 +135,18 @@ kernel launch counts to 0 just before it and reads them just after:
     on the card against the CPU (1e-4); ``launch.train.main`` for 6 steps
     with a checkpoint every 3, and 3 steps resumed to 6, equal at step 6
     (the launcher on the SMOKE config: ``reduced``); B1-B6 launch no time.
+18. distributed training (``distributed_phase``), in a one-rank process
+    group (NCCL for the card, gloo for the host): llama3.2-1b's ``CONFIG``
+    at full width and depth takes 3 steps through
+    ``distributed.fsdp.make_sharded_train_step`` (data 1 x model 1) and 3
+    through the one-process ``make_train_step`` from the same weights,
+    deterministic algorithms on: loss and grad norm within 1e-6; ms, peak
+    bytes, collective bytes and calls a step; ``make_dp_train_step`` for 8
+    steps plain and 8 with int8 compression over phase 17's batch: both
+    losses fall, the last ones within the reference test's bound; the
+    ``ElasticRunner`` toy recovering from a failure at step 17 bit-equal to
+    an uninterrupted run; one sharded f32 step of every SMOKE config card
+    against CPU (1e-4); B1-B6 launch no time.
 
 Prints one JSON object per line; the line before the last is the kernel
 table and the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -174,7 +186,9 @@ from repro_torch.core import EntryTable, build_udg  # noqa: E402
 from repro_torch.exec import execute_batch, export_planned_graph  # noqa: E402
 from repro_torch.exec.plan import PLAN_NAMES, QueryPlan, default_planner_config  # noqa: E402
 from repro_torch.fault import FaultInjector, FaultSpec, InjectedFault, poison_vector, truncate_file  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, bounds, ops, ref  # noqa: E402
+from repro_torch.kernels.bounds import (  # noqa: E402  (the kernel table's bound model)
+    CMP_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, bound)
 from repro_torch.search import batched as search_mod  # noqa: E402
 from repro_torch.search import batched_udg_search  # noqa: E402
 from repro_torch.search.batched import prepare_states, prepare_states_extended, search_core  # noqa: E402
@@ -189,11 +203,8 @@ BRUTE_SELECTIVITY = 0.003     # <= 256 valid objects at n <= 65536
 WIDE_BEAM, WIDE_BEAM_QUERIES = 300, 8   # parity at a beam wider than B2's registers
 PARITY_QUERIES = 64           # card against CPU on the main path (reduced from 128)
 STREAM_CPU_QUERIES = 16       # card against CPU on the streaming index (reduced from 64)
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12        # H100 SXM, outside the tensor cores
 TF32_OPS_PER_S = 495e12       # H100 SXM, dense TF32 on the tensor cores (NVIDIA data sheet)
 FP16_OPS_PER_S = 989e12       # H100 SXM, dense FP16 on the tensor cores (NVIDIA data sheet)
-CMP_OPS_PER_S = 33.5e12       # one compare per FP32 lane per clock
 SLEEP_CYCLES_PER_CALL = 400_000   # about 0.2 ms of host time per queued call
 RECORD: dict = {}
 FORMS: dict = {}   # name -> another build of filter_dist.cu (--form)
@@ -266,11 +277,6 @@ def kernel_times(fn) -> dict:
     return {"ms": time_ms(fn), "queued_ms": queued_ms(fn)}
 
 
-def bound(nbytes: float, nops: float, ops_rate: float) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_rate
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def reset_counts() -> None:
     ops.reset_launches()
     for key in search_mod.LOOP_STATS:
@@ -320,11 +326,12 @@ def scorer_bound(out, open_out, cand, label_key, *, D, elt, scaled, label_bytes,
     words = int(torch.unique((row_of + (cand.long() >> 5))[torch.isfinite(open_out)]).numel())
     rows_read = int(torch.unique(cand[fin]).numel())
     pairs = int(torch.unique((row_of + cand.long())[fin]).numel())
-    row_bytes = D * elt + 4 + (4 if scaled else 0)
-    nbytes = (B * C * 8 + labels * label_bytes + words * 4
-              + rows_read * row_bytes + B * per_query)
+    row_bytes = bounds.row_bytes(D, elt, scaled)
+    nbytes = bounds.scorer_bytes(slots=B * C, labels=labels, label_bytes=label_bytes,
+                                 words=words, rows_read=rows_read, row_bytes=row_bytes,
+                                 queries=B, per_query=per_query)
     pair_bytes = int(fin.sum()) * row_bytes + B * C * 8
-    b_ms, b_by = bound(nbytes, pairs * 2 * D, FP32_OPS_PER_S)
+    b_ms, b_by = bound(nbytes, bounds.scorer_ops(pairs, D), FP32_OPS_PER_S)
     return {"bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes, "scored": pairs,
             "rows_read": rows_read, "labels_read": labels, "words_read": words,
             "pair_bytes": pair_bytes, "pair_floor_ms": pair_bytes / HBM_BYTES_PER_S * 1e3}
@@ -531,10 +538,10 @@ def merge_bound(args, keep, words: int = 0) -> dict:
     out_beam = rank + torch.searchsorted(ck, bk) < L
     id_sectors = sectors(cand_ids, live)
     beam_sectors = sectors(beam_ids, out_beam) + sectors(beam_exp, out_beam)
-    nbytes = (B * L * 4 + B * C * 4 + 32 * (id_sectors + beam_sectors)
-              + B * (9 * L + C) + 8 * words)
-    lg = max(1, int(np.ceil(np.log2(L + C))))
-    b_ms, b_by = bound(nbytes, (B * L + int(live.sum())) * lg, CMP_OPS_PER_S)
+    nbytes = bounds.merge_bytes(B=B, L=L, C=C, sector_bytes=32 * (id_sectors + beam_sectors),
+                                words=words)
+    b_ms, b_by = bound(nbytes, bounds.merge_ops(B=B, L=L, C=C, live=int(live.sum())),
+                       CMP_OPS_PER_S)
     return {"bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
             "id_sectors": id_sectors, "beam_sectors": beam_sectors}
 
@@ -3540,6 +3547,270 @@ def train_phase(out: Path) -> dict:
     return launches
 
 
+DIST_STEPS = 3                # phase 18: sharded steps held against the one-process step
+DIST_REL_TOL = 1e-6           # their loss and grad norm, deterministic algorithms on
+DIST_SMOKE_TOL = 1e-4         # a SMOKE sharded step on the card against the CPU, f32
+DIST_BUDGET_S = 45.0          # the phase's share of the run's time limit (reported)
+ELASTIC_FAIL_AT = 17
+
+
+def dist_smoke_card_vs_cpu(arch: str, mesh_gpu, mesh_cpu) -> float:
+    """One f32 sharded step of ``arch``'s SMOKE config on the card and on
+    the CPU (the same one-rank group: NCCL for the card's tensors, gloo for
+    the host's) from the same parameters and batch: the metrics and every
+    slice of the state within ``DIST_SMOKE_TOL``; the largest error."""
+    from repro_torch.distributed.fsdp import make_sharded_train_step
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.train import adamw
+
+    c = dataclasses.replace(get_lm_config(arch, smoke=True), dtype="float32")
+    model = lm.init_params(c, seed=0)
+    cpu_model = lm.LM(c, device="meta").to_empty(device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    batch = synthetic_batch(np.random.default_rng(3), c, 2, 32)
+    got, want = {}, {}
+    for mesh, m_, out in ((mesh_gpu, model, got), (mesh_cpu, cpu_model, want)):
+        shard_state, step = make_sharded_train_step(c, adamw(lr=1e-3), mesh)
+        st = shard_state(m_)
+        st, m = step(st, batch)
+        out.update({f"metric/{k}": v.detach().cpu().double().numpy() for k, v in m.items()})
+        opt = st["opt"]
+        for tree, name in ((st["params"], "params"), (opt.mu, "mu"), (opt.nu, "nu"),
+                           (opt.master, "master")):
+            out.update({f"{name}/{k}": v.detach().cpu().double().numpy() for k, v in tree.items()})
+    worst = 0.0
+    for key, w in want.items():
+        require(np.allclose(got[key], w, atol=DIST_SMOKE_TOL, rtol=DIST_SMOKE_TOL),
+                f"{arch} sharded step, card vs CPU: {key}")
+        worst = max(worst, float(np.max(np.abs(got[key] - w))) if w.size else 0.0)
+    return worst
+
+
+def elastic_toy(mesh_of, work: Path, fail_at) -> tuple:
+    """The reference test's toy quadratic (``tests/test_distributed.py``)
+    through ``ElasticRunner`` on the card: 30 steps, a checkpoint every 5,
+    one failure at ``fail_at`` (or none) recovered on the same one rank.
+    Returns (the final w, steps, restarts)."""
+    from repro_torch.distributed.elastic import ElasticRunner
+    from torch.utils._pytree import tree_map
+    from repro_torch.distributed.sharding import P
+    from repro_torch.train import CheckpointManager, adamw
+
+    opt = adamw(lr=0.1, weight_decay=0.0)
+
+    def make_step(mesh):
+        def step(state, batch):
+            w = state["params"]["w"].requires_grad_(True)
+            x, y = (torch.as_tensor(batch[k], device=mesh.device) for k in ("x", "y"))
+            with torch.enable_grad():
+                (g,) = torch.autograd.grad(torch.mean((x @ w - y) ** 2), [w])
+            opt.update({"w": g}, state["opt"], state["params"])
+            return state
+        return step
+
+    rng = np.random.default_rng(0)
+    w0 = {"w": torch.as_tensor(rng.normal(size=(4,)).astype(np.float32))}
+    state = {"params": w0, "opt": opt.init(w0)}
+    batches = [{"x": rng.normal(size=(8, 4)).astype(np.float32),
+                "y": rng.normal(size=(8,)).astype(np.float32)} for _ in range(30)]
+    shutil.rmtree(work, ignore_errors=True)
+    runner = ElasticRunner(ckpt=CheckpointManager(str(work), keep=2), make_mesh=mesh_of,
+                           make_step=make_step, state_specs=lambda m: tree_map(lambda _: P(), state),
+                           ckpt_every=5)
+    st, steps, restarts = runner.run(state, batches, n_devices=1, fail_at=fail_at,
+                                     recover_devices=1)
+    shutil.rmtree(work, ignore_errors=True)
+    return st["params"]["w"].detach().cpu(), steps, restarts
+
+
+def distributed_phase(out: Path) -> dict:
+    """Phase 18: distributed training (``distributed.fsdp``,
+    ``train.dp_trainer``, ``distributed.compression``,
+    ``distributed.elastic``) in a one-rank process group (a FileStore under
+    ``out``; NCCL for the card's tensors, gloo for the host's).
+
+    1. llama3.2-1b's ``CONFIG`` at full width and depth (bf16, remat
+       "dots", random weights from seed 0), deterministic algorithms on:
+       ``DIST_STEPS`` steps of the one-process ``make_train_step``, then
+       the same from the same weights through ``make_sharded_train_step``
+       over data 1 x model 1: loss and grad norm within 1e-6 of each
+       other; each step's ms, peak bytes, the slices' bytes, collective
+       bytes and calls a step; one more step of each traced (device busy,
+       launches, idle share);
+    2. ``make_dp_train_step``, deterministic algorithms still on: 8 steps
+       uncompressed and 8 with ``compress_grads`` over phase 17's repeated
+       8 x 512 batch
+       (``cosine_lr(1e-3, warmup=2, total=8)``): both losses fall, the gap
+       between the last losses under ``0.15·(first - last) + 0.05``
+       (``tests/test_distributed.py``'s bound); ms a step, peak bytes,
+       the residual's bytes;
+    3. ``ElasticRunner`` on the toy quadratic failing at step 17 and
+       recovering: bit-equal to a run never interrupted;
+    4. one f32 sharded step of every SMOKE config, card against CPU
+       (1e-4);
+    5. B1-B6 launch no time in the phase."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import comm, make_train_mesh
+    from repro_torch.distributed.fsdp import make_sharded_train_step
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.train import adamw, cosine_lr
+    from repro_torch.train.dp_trainer import make_dp_train_step
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    rec: dict = {}
+    cfg = get_lm_config(LM_ARCH)
+    batch = synthetic_batch(np.random.default_rng(1), cfg, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.set_device(0)
+    store = out / "dist_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{store.resolve()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_train_mesh(model=1, device="cuda")
+        rec["mesh"] = {"shape": list(mesh.shape), "axes": list(mesh.axis_names),
+                       "backend": "cpu:gloo,cuda:nccl", "world_size": 1}
+
+        # 1. the sharded step against the one-process step, same weights
+        def schedule():
+            return adamw(lr=cosine_lr(1e-3, warmup=2, total=TRAIN_STEPS))
+
+        torch.use_deterministic_algorithms(True, warn_only=True)   # the embedding's scatter-add
+        runs = {}
+        for form in ("one_process", "sharded"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            model = lm.init_params(cfg, seed=0)
+            opt = schedule()
+            if form == "one_process":
+                state, ustep = opt.init(model), lm.make_train_step(cfg, opt)
+                step = lambda: ustep(model, state, batch)[2]      # noqa: E731
+            else:
+                shard_state, sstep = make_sharded_train_step(cfg, opt, mesh)
+                state = shard_state(model)
+                del model
+                step = lambda: sstep(state, batch)[1]             # noqa: E731
+            torch.cuda.synchronize()
+            state_bytes = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            comm.reset_counts()
+            losses, gnorms, ms = [], [], []
+            for _ in range(DIST_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"].item())
+                gnorms.append(m["grad_norm"].item())
+            counts = comm.counts()
+            p50 = float(np.percentile(ms[1:], 50))
+            runs[form] = {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
+                          "step_p50_ms": p50, "warmup_step_ms": ms[0],
+                          "state_bytes": state_bytes,
+                          "peak_device_bytes": torch.cuda.max_memory_allocated() - base,
+                          "collectives_per_step": {k: {"bytes": v["bytes"] / DIST_STEPS,
+                                                       "calls": v["calls"] / DIST_STEPS}
+                                                   for k, v in counts.items()}}
+            runs[form]["trace"] = lm_trace(step, p50)     # a fourth step, traced
+            if form == "sharded":
+                runs[form]["slice_bytes"] = sum(
+                    t.numel() * t.element_size() for tree in (state["params"], state["opt"].mu,
+                                                              state["opt"].nu, state["opt"].master)
+                    for t in tree.values())
+            del state, step, m
+            if form == "one_process":
+                del model, ustep
+            else:
+                del sstep, shard_state
+        torch.cuda.empty_cache()
+        for key in ("losses", "grad_norms"):
+            for a, b in zip(runs["sharded"][key], runs["one_process"][key]):
+                require(math.isfinite(a) and abs(a - b) <= DIST_REL_TOL * abs(b),
+                        f"the sharded step's {key} {runs['sharded'][key]} leave the one-process "
+                        f"step's {runs['one_process'][key]}")
+        runs["sharded_over_one_process"] = (runs["sharded"]["step_p50_ms"]
+                                            / runs["one_process"]["step_p50_ms"])
+        rec["sharded_step"] = runs
+
+        # 2. the data-parallel trainer, with and without int8 compression
+        # (deterministic algorithms still on: the gap gate reads one run)
+        dp = {}
+        for compress in (False, True):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            model = lm.init_params(cfg, seed=0)
+            init_state, dstep = make_dp_train_step(cfg, schedule(), mesh, compress_grads=compress)
+            state = init_state(model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            comm.reset_counts()
+            losses, ms = [], []
+            for _ in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = dstep(state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"].item())
+            dp["int8" if compress else "pmean"] = {
+                "losses": losses, "step_ms": ms, "step_p50_ms": float(np.percentile(ms[1:], 50)),
+                "peak_device_bytes": torch.cuda.max_memory_allocated() - base,
+                "residual_bytes": sum(r.numel() * r.element_size()
+                                      for r in state["residual"].values()),
+                "collectives_per_step": {k: {"bytes": v["bytes"] / TRAIN_STEPS,
+                                             "calls": v["calls"] / TRAIN_STEPS}
+                                         for k, v in comm.counts().items()}}
+            require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+                    f"the DP trainer's loss did not fall (compress={compress}): {losses}")
+            del model, state, dstep, init_state, m
+            torch.cuda.empty_cache()
+        plain, packed = dp["pmean"]["losses"], dp["int8"]["losses"]
+        gap, limit = abs(packed[-1] - plain[-1]), 0.15 * abs(plain[0] - plain[-1]) + 0.05
+        require(gap < limit, f"int8 compression leaves the trajectory: {gap} >= {limit}")
+        dp.update(last_loss_gap=gap, gap_limit=limit,
+                  compressed_over_plain=dp["int8"]["step_p50_ms"] / dp["pmean"]["step_p50_ms"])
+        rec["dp_trainer"] = dp
+        torch.use_deterministic_algorithms(False)
+        rec["deterministic_algorithms"] = "sections 1 and 2"
+
+        # 3. the elastic runner: a failure at step 17 recovers bit for bit
+        mesh_of = lambda n: make_train_mesh(ranks=range(n), device="cuda")   # noqa: E731
+        t0 = time.perf_counter()
+        w_fail, steps, restarts = elastic_toy(mesh_of, out / "elastic_fail", ELASTIC_FAIL_AT)
+        w_whole, steps_w, _ = elastic_toy(mesh_of, out / "elastic_whole", None)
+        require(steps == steps_w == 30 and restarts == 1, f"elastic: {steps} steps, {restarts}")
+        require(torch.equal(w_fail, w_whole), f"elastic: {w_fail} != {w_whole}")
+        rec["elastic"] = {"steps": steps, "restarts": restarts, "fail_at": ELASTIC_FAIL_AT,
+                          "bit_equal": True, "w": w_fail.tolist(), "seconds": time.perf_counter() - t0}
+
+        # 4. card against CPU, one sharded step of every SMOKE config
+        t0 = time.perf_counter()
+        mesh_cpu = make_train_mesh(model=1, device="cpu")
+        rec["card_vs_cpu"] = {"smoke_f32_max_abs_err": {a: dist_smoke_card_vs_cpu(a, mesh, mesh_cpu)
+                                                        for a in LM_ARCHS},
+                              "tol": DIST_SMOKE_TOL, "seconds": time.perf_counter() - t0}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+    # 5. no UDG kernel on this path
+    launches = dict(ops.LAUNCHES)
+    require(not any(launches.values()), f"the distributed path launched a UDG kernel: {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["budget_s"] = DIST_BUDGET_S
+    if rec["seconds"] > DIST_BUDGET_S:
+        print(f"distributed phase: {rec['seconds']:.1f} s, over its {DIST_BUDGET_S} s budget",
+              flush=True)
+    emit({"distributed": rec, "card": RECORD.get("card")})
+    (out / "distributed.json").write_text(json.dumps(rec, indent=1))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=FULL_N, help="corpus size")
@@ -3791,6 +4062,13 @@ def main(argv=None) -> int:
     RECORD["train_s"] = time.perf_counter() - t0
     RECORD["launches_by_path"]["train"] = train_launches
 
+    # 18. distributed training: the sharded step, the DP trainer with int8
+    # compression, elastic restarts, in a one-rank process group
+    t0 = time.perf_counter()
+    dist_launches = distributed_phase(out)
+    RECORD["distributed_s"] = time.perf_counter() - t0
+    RECORD["launches_by_path"]["distributed"] = dist_launches
+
     # kernel -> (source, the TPU kernel's pallas_call, the path its launches count on)
     replaces = {
         "filter_dist_gather_packed": ("src/repro_torch/kernels/csrc/filter_dist.cu",
@@ -3825,6 +4103,7 @@ def main(argv=None) -> int:
                                "full_width": FAULT["compaction"]["launches"][name]},
             "lm_launches": lm_launches[name],
             "train_launches": train_launches[name],
+            "distributed_launches": dist_launches[name],
             "serve_data2_launches": serve_launches["auto/data2"][name],
             "ok": True,
         })

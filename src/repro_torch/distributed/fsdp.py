@@ -1,0 +1,233 @@
+"""The sharded train step (ZeRO-3 over a ``TrainMesh``): what GSPMD makes of
+the reference's ``jax.jit(train_step, in_shardings=...)`` (``launch/train.py``,
+``launch/dryrun.py``), written out over a process group.
+
+* **State.** Every parameter and every AdamW ``mu``/``nu``/``master`` leaf
+  lives only as this rank's slice under ``sharding.param_specs`` /
+  ``opt_state_specs`` (``local_shard``): a rank holds each leaf's bytes over
+  the product of its spec's axes.
+* **Forward and backward.** The model reads its parameters as attributes
+  (``models/layers.py``); the step hands it a tree of the same shape whose
+  leaves are gathered when they are read (``_Gather``: one ``all_gather``
+  over the union of the leaf's spec axes), so a layer's weights exist whole only
+  while it runs and while autograd keeps them for its backward, and a
+  recomputed block (``cfg.remat``) gathers them again. The step runs on
+  this rank's rows of the batch (``batch_spec``).
+* **Gradients.** ``_Gather``'s backward means the whole gradient of a read
+  over the batch axes (``all_reduce``, in the gradient's dtype, then a
+  divide, as ``pmean``) and keeps this rank's slice. The gradient norm is
+  the whole meaned gradient's: each rank sums its slices' squares, each
+  divided by the number of ranks that hold the same slice, and one
+  ``all_reduce`` over the mesh adds them, so every rank clips alike. Each
+  rank then applies AdamW to its own slices (``optimizer.update(...,
+  gnorm=)``).
+* **MoE.** The aux loss's token means are taken over the whole batch
+  (``loss_fn``'s ``batch_mean``), as the one-process step takes them.
+
+The model axis holds slices, but its ranks repeat the compute: each gathers
+the whole weight and runs the same rows. Real tensor parallelism is not
+here (DTensor does not cover the port's ops, ``layers._MatmulF32`` among
+them; ROADMAP C). The loss, grad norm and parameters equal the one-process
+``make_train_step``'s up to the order of float sums.
+
+Every collective goes through ``distributed.comm`` and is counted there.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import (
+    _axes,
+    batch_spec,
+    local_shard,
+    mesh_sizes,
+    opt_state_specs,
+    param_specs,
+    spec_size,
+)
+from repro_torch.models.model import init_params_shapes
+from repro_torch.models.steps import loss_fn
+from repro_torch.train.optimizer import AdamWState
+
+
+def gather(shard: torch.Tensor, spec, mesh, tag: str = "") -> torch.Tensor:
+    """The whole tensor from this rank's slice: one ``all_gather`` over the
+    union of the spec's axes (whose group orders its ranks row-major over
+    those axes, in the mesh's order), then each axis's slices moved in
+    front of the dim it splits, a dim's axes in the spec's order."""
+    split = {d: _axes(e) for d, e in enumerate(spec) if _axes(e)}
+    if not split:
+        return shard
+    used = [a for a in mesh.axis_names if any(a in ax for ax in split.values())]
+    sizes = mesh_sizes(mesh)
+    out = comm.all_gather(shard, mesh.group(used), dim=0, tag=tag)
+    out = out.view(*(sizes[a] for a in used), *shard.shape)
+    perm = []
+    for d in range(shard.dim()):
+        perm += [used.index(a) for a in split.get(d, ())]
+        perm.append(len(used) + d)
+    whole = [n * math.prod(sizes[a] for a in split.get(d, ())) for d, n in enumerate(shard.shape)]
+    return out.permute(perm).reshape(whole)
+
+
+def _batch_axes(spec) -> tuple:
+    return _axes(spec[0]) if len(spec) else ()
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the whole leaf from its slice. Backward: the whole gradient
+    meaned over the batch axes, then this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, shard, spec, mesh, batch_axes, tag):
+        ctx.spec, ctx.mesh, ctx.batch_axes, ctx.tag = spec, mesh, batch_axes, tag
+        return gather(shard, spec, mesh, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.batch_axes:
+            g = g.clone(memory_format=torch.contiguous_format)
+            group = ctx.mesh.group(ctx.batch_axes)
+            comm.all_reduce(g, group, tag=ctx.tag)
+            g.div_(torch.distributed.get_world_size(group))
+        return local_shard(g, ctx.spec, ctx.mesh, ctx.mesh.coord), None, None, None, None
+
+
+class _BatchMean(torch.autograd.Function):
+    """The mean over the batch axes of a value each rank computed from its
+    rows. Backward is the identity: every rank's upstream gradient is the
+    same (the meaned value feeds the same loss term on each), and the
+    parameters' gradients are meaned afterwards by ``_Gather``."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        x = x.detach().clone()
+        comm.all_reduce(x, group, tag="moe.aux")
+        return x / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gathered:
+    """A module-shaped view of the slices: a child module is a view, a
+    ``ModuleList`` a list of views, and a parameter is gathered when it is
+    read (through ``fetch``)."""
+
+    def __init__(self, module: nn.Module, prefix: str, fetch):
+        self._fetch = fetch
+        self._prefix = prefix
+        self._params = frozenset(n for n, _ in module.named_parameters(recurse=False))
+        for n, child in module.named_children():
+            setattr(self, n, _view(child, f"{prefix}{n}.", fetch))
+
+    def __getattr__(self, name):
+        if name in self.__dict__.get("_params", ()):
+            return self._fetch(self._prefix + name)
+        raise AttributeError(name)
+
+
+def _view(module: nn.Module, prefix: str, fetch):
+    if isinstance(module, nn.ModuleList):
+        return [_view(c, f"{prefix}{i}.", fetch) for i, c in enumerate(module)]
+    return _Gathered(module, prefix, fetch)
+
+
+def gathered_view(template: nn.Module, shards: Mapping[str, torch.Tensor], specs, mesh,
+                  batch_axes=()):
+    """``template``'s tree (an ``LM``, on ``meta``) over ``shards``: each
+    parameter read gathers its leaf; its gradient, meaned over
+    ``batch_axes``, reaches the slice."""
+    return _view(template, "", lambda name: _Gather.apply(shards[name], specs[name], mesh,
+                                                          batch_axes, name))
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    return dict(params) if isinstance(params, Mapping) else dict(params.named_parameters())
+
+
+def shard_tree(named: Mapping[str, torch.Tensor], specs, mesh) -> Dict[str, torch.Tensor]:
+    """This rank's slices of whole tensors, copied onto the mesh's device."""
+    return {n: local_shard(t.detach(), specs[n], mesh, mesh.coord).to(mesh.device, copy=True)
+            .contiguous() for n, t in named.items()}
+
+
+def gather_tree(shards: Mapping[str, torch.Tensor], specs, mesh) -> Dict[str, torch.Tensor]:
+    """The whole tensors from their slices (every rank gets them)."""
+    with torch.no_grad():
+        return {n: gather(t.detach(), specs[n], mesh, n) for n, t in shards.items()}
+
+
+def make_sharded_train_step(cfg: ModelConfig, optimizer, mesh):
+    """Returns ``(shard_state, step)`` over a ``TrainMesh``.
+
+    ``shard_state(params, opt_state=None)`` takes whole parameters (an
+    ``LM`` or a ``{name: tensor}`` dict, on any device) and optionally a
+    whole AdamW state, and returns ``{"params": {name: slice}, "opt":
+    AdamWState of slices}`` on the mesh's device (a fresh AdamW state from
+    the slices when none is given). ``step(state, batch)`` takes the global
+    batch (``tokens``, ``labels``; numpy or tensors), runs this rank's rows,
+    updates the state in place and returns ``(state, metrics)``: ``loss``,
+    ``aux`` and ``total`` meaned over the batch axes, ``grad_norm`` the
+    whole gradient's. ``step.specs`` holds the parameter specs,
+    ``step.unshard(state)`` the whole ``(params, opt_state)`` for a
+    checkpoint."""
+    template = init_params_shapes(cfg)
+    specs = param_specs(template, cfg, mesh)
+    n_mesh = mesh.size
+    repl = {n: n_mesh // spec_size(mesh, s) for n, s in specs.items()}
+
+    def shard_state(params, opt_state=None):
+        shards = shard_tree(_named(params), specs, mesh)
+        if opt_state is None:
+            return {"params": shards, "opt": optimizer.init(shards)}
+        ospecs = opt_state_specs(opt_state, specs)
+        opt = AdamWState(step=opt_state.step.detach().to(mesh.device, copy=True),
+                         mu=shard_tree(opt_state.mu, ospecs.mu, mesh),
+                         nu=shard_tree(opt_state.nu, ospecs.nu, mesh),
+                         master=shard_tree(opt_state.master, ospecs.master, mesh))
+        return {"params": shards, "opt": opt}
+
+    def unshard(state):
+        opt = state["opt"]
+        return gather_tree(state["params"], specs, mesh), AdamWState(
+            step=opt.step.clone(), mu=gather_tree(opt.mu, specs, mesh),
+            nu=gather_tree(opt.nu, specs, mesh), master=gather_tree(opt.master, specs, mesh))
+
+    def step(state, batch):
+        shards = state["params"]
+        tokens = torch.as_tensor(batch["tokens"], device=mesh.device)
+        labels = torch.as_tensor(batch["labels"], device=mesh.device)
+        bspec = batch_spec(mesh, tuple(tokens.shape))
+        b_axes = _batch_axes(bspec)
+        tokens = local_shard(tokens, bspec, mesh, mesh.coord)
+        labels = local_shard(labels, bspec, mesh, mesh.coord)
+        b_group = mesh.group(b_axes) if b_axes else None
+        n_batch = torch.distributed.get_world_size(b_group) if b_axes else 1
+        for t in shards.values():
+            t.requires_grad_(True)
+        tree = gathered_view(template, shards, specs, mesh, b_axes)
+        mean = (lambda x: _BatchMean.apply(x, b_group, n_batch)) if b_axes else None
+        with torch.enable_grad():
+            total, metrics = loss_fn(tree, cfg, tokens, labels, batch_mean=mean)
+            grads = torch.autograd.grad(total, list(shards.values()), materialize_grads=True)
+        grads = dict(zip(shards, grads))
+        sq = sum(torch.sum(torch.square(g.to(torch.float32))) / repl[n] for n, g in grads.items())
+        comm.all_reduce(sq, mesh.group(mesh.axis_names), tag="grad_norm")
+        gnorm = optimizer.update(grads, state["opt"], shards, gnorm=torch.sqrt(sq))
+        m = torch.stack([metrics["loss"].detach(), metrics["aux"].detach(), total.detach()])
+        if b_axes:
+            comm.all_reduce(m, b_group, tag="metrics")
+            m = m / n_batch
+        return state, {"loss": m[0], "aux": m[1], "total": m[2], "grad_norm": gnorm}
+
+    step.specs = specs
+    step.unshard = unshard
+    return shard_state, step

@@ -138,3 +138,92 @@ def make_process_mesh(group=None, *, model: Optional[int] = None, pod: int = 1,
             query_group = g
     return ShardMesh(model=model, device=dev, group=model_group, data=data, pod=pod,
                      query_group=query_group, query_index=q_idx)
+
+
+# --- the training mesh ---------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """A ``(data, model)`` or ``(pod, data, model)`` mesh over ranks of an
+    initialized process group, for the sharded train step, the
+    data-parallel trainer and the elastic runner.
+
+    ``ranks`` are the global ranks of the mesh in row-major order over the
+    axes; ``coords`` is this rank's position (``None`` for a rank outside
+    the mesh, which takes no step on it). ``groups`` maps every non-empty
+    subset of the axes (a tuple in the mesh's order; ``axis_names`` is the
+    whole mesh) to this rank's group over those axes. A group's rank order
+    is the row-major order of its axes, so a dim split over ``("pod",
+    "data")`` gathers pod-major."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    device: torch.device
+    ranks: Tuple[int, ...]
+    coords: Optional[Tuple[int, ...]]
+    groups: dict
+
+    @property
+    def member(self) -> bool:
+        return self.coords is not None
+
+    @property
+    def coord(self) -> dict:
+        """``{axis: index}`` of this rank."""
+        return dict(zip(self.axis_names, self.coords))
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def group(self, axes):
+        """This rank's group over ``axes`` (a name or a tuple of names)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        key = tuple(a for a in self.axis_names if a in axes)
+        if len(key) != len(axes):
+            raise KeyError(f"axes {axes} are not axes of the mesh {self.axis_names}")
+        return self.groups[key]
+
+
+def _combos(names: Tuple[str, ...]) -> Tuple[Tuple[str, ...], ...]:
+    """Every non-empty subset of the axes, in the mesh's order."""
+    import itertools
+
+    return tuple(c for k in range(1, len(names) + 1) for c in itertools.combinations(names, k))
+
+
+def make_train_mesh(*, model: int = 1, pod: int = 1, ranks=None, device=None) -> TrainMesh:
+    """A training mesh over ``ranks`` (``None``: every rank of the default
+    group, which must be initialized): ``model`` x ``pod`` divides their
+    number, data is the rest. Every rank of the default group must call
+    this with the same arguments, in the same order as its other
+    ``new_group`` calls: it creates every group of the mesh, those this
+    rank is not in included, as ``torch.distributed.new_group`` requires."""
+    import numpy as np
+
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialized")
+    world = dist.get_world_size()
+    ranks = tuple(range(world)) if ranks is None else tuple(sorted(int(r) for r in ranks))
+    pod, model = _extent("pod", pod), _extent("model", model)
+    if len(ranks) % (pod * model):
+        raise ValueError(f"a mesh of {len(ranks)} ranks is not pod {pod} x data x model {model}")
+    data = len(ranks) // (pod * model)
+    names = ("pod", "data", "model") if pod > 1 else ("data", "model")
+    shape = (pod, data, model) if pod > 1 else (data, model)
+    grid = np.array(ranks).reshape(shape)
+    me = dist.get_rank()
+    coords = tuple(int(c) for c in np.argwhere(grid == me)[0]) if me in ranks else None
+    groups = {}
+    for combo in _combos(names):
+        rest = [names.index(a) for a in names if a not in combo]
+        inner = [names.index(a) for a in combo]
+        rows = grid.transpose(rest + inner).reshape(-1, int(np.prod([shape[i] for i in inner])))
+        for row in rows:
+            members = [int(r) for r in row]
+            g = dist.group.WORLD if members == list(range(world)) else dist.new_group(members)
+            if me in members:
+                groups[combo] = g
+    return TrainMesh(shape=shape, axis_names=names, device=resolve_device(device), ranks=ranks,
+                     coords=coords, groups=groups)

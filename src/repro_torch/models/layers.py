@@ -52,10 +52,11 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out, whatever the operands' dtype: the reference's
     ``preferred_element_type=jnp.float32`` (a bf16 ``torch.matmul`` would
     round its output to bf16). On the card a bf16 product is one cuBLAS call
-    with an f32 output (``_MatmulF32`` when a gradient is needed); elsewhere
+    with an f32 output (``_MatmulF32`` when a gradient is needed), and so is
+    a ``meta`` tensor's (the dry-run counts the card's path); elsewhere
     the operands are widened to f32 first (exact), which on the card would
     copy the whole table a call."""
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype:
+    if (x.is_cuda or x.is_meta) and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype:
         x2 = x.reshape(-1, x.shape[-1])
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
             out = _MatmulF32.apply(x2, w)

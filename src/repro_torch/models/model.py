@@ -158,12 +158,13 @@ def param_count(params: nn.Module) -> int:
 # --- blocks ------------------------------------------------------------------------
 
 
-def _ffn(cfg: ModelConfig, p, y: torch.Tensor, group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _ffn(cfg: ModelConfig, p, y: torch.Tensor, group: int, batch_mean=None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block's MLP or MoE on the normed input; (out, aux)."""
     if cfg.is_moe and getattr(p, "moe", None) is not None:
         return moe_lib.moe(p.moe, y, num_experts=cfg.num_experts, top_k=cfg.top_k,
                            mlp_type=cfg.mlp_type, capacity_factor=cfg.capacity_factor,
-                           group=group)
+                           group=group, batch_mean=batch_mean)
     return mlp(p.mlp, y, cfg.mlp_type), torch.zeros((), dtype=torch.float32, device=y.device)
 
 
@@ -172,17 +173,17 @@ def _attn_kw(cfg: ModelConfig) -> dict:
                 head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
 
 
-def _attn_block_kv(cfg: ModelConfig, p, x, positions, window: Optional[int]):
+def _attn_block_kv(cfg: ModelConfig, p, x, positions, window: Optional[int], batch_mean=None):
     """One attention block over the sequence; (x, aux, (k, v))."""
     h, kv = attn_lib.attention_with_kv(p.attn, rmsnorm(p.attn_norm, x, cfg.norm_eps), positions,
                                        window=window, chunk=cfg.attn_chunk, **_attn_kw(cfg))
     x = x + h
-    out, aux = _ffn(cfg, p, rmsnorm(p.mlp_norm, x, cfg.norm_eps), cfg.moe_group)
+    out, aux = _ffn(cfg, p, rmsnorm(p.mlp_norm, x, cfg.norm_eps), cfg.moe_group, batch_mean)
     return x + out, aux, kv
 
 
-def _attn_block(cfg: ModelConfig, p, x, positions, window: Optional[int]):
-    x, aux, _ = _attn_block_kv(cfg, p, x, positions, window)
+def _attn_block(cfg: ModelConfig, p, x, positions, window: Optional[int], batch_mean=None):
+    x, aux, _ = _attn_block_kv(cfg, p, x, positions, window, batch_mean)
     return x, aux
 
 
@@ -280,8 +281,11 @@ def _positions(tokens: torch.Tensor, positions) -> torch.Tensor:
     return positions
 
 
-def forward(params, cfg: ModelConfig, tokens, positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits f32, moe aux-loss scalar)."""
+def forward(params, cfg: ModelConfig, tokens, positions=None, *, batch_mean=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits f32, moe aux-loss scalar);
+    ``batch_mean`` goes to every MoE layer whose aux loss is summed
+    (``moe.moe``)."""
     positions = _positions(tokens, positions)
     x = _embed_tokens(params, cfg, tokens)
     G, P = cfg.layer_groups()
@@ -309,7 +313,8 @@ def forward(params, cfg: ModelConfig, tokens, positions=None) -> Tuple[torch.Ten
         for group in params.layers:
             x = body(x, group)
     else:
-        body = _maybe_remat(lambda h, lp: _attn_block(cfg, lp, h, positions, None), cfg)
+        body = _maybe_remat(lambda h, lp: _attn_block(cfg, lp, h, positions, None, batch_mean),
+                            cfg)
         for lp in params.layers:
             x, a = body(x, lp)
             aux = aux + a

@@ -12,10 +12,16 @@ Three details carry the reference's semantics where torch differs:
 - a token whose position reaches the capacity gets a zero row in the
   position one-hot (``jax.nn.one_hot`` of an out-of-range index), so it is
   dropped; ``torch.nn.functional.one_hot`` would raise instead.
+
+The aux loss is a product of two token means. A step that runs on a slice
+of the batch (``distributed.fsdp``) passes ``batch_mean`` (through
+``loss_fn`` and ``forward``) so that both means are the whole batch's, as
+under the reference's GSPMD step; the data-parallel trainer, like the
+reference's ``shard_map`` one, keeps each replica's own.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -73,8 +79,11 @@ def moe(
     mlp_type: str,
     capacity_factor: float = 1.25,
     group: int = 256,
+    batch_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output [B, S, D], aux load-balancing loss scalar)."""
+    """Returns (output [B, S, D], aux load-balancing loss scalar). The aux
+    loss's token means go through ``batch_mean`` when it is given (the mean
+    over the ranks that hold the rest of the batch)."""
     B, S, D = x.shape
     T = B * S
     g = min(group, T)
@@ -114,6 +123,8 @@ def moe(
     # Switch-style load-balancing auxiliary loss
     me = probs.mean(dim=(0, 1))                                      # mean router prob
     ce = oh.sum(dim=2).mean(dim=(0, 1))                              # token fraction
+    if batch_mean is not None:
+        me, ce = batch_mean(me), batch_mean(ce)
     aux = E * torch.sum(me * ce)
     return out.reshape(B, S, D), aux
 

@@ -58,9 +58,9 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - gold)
 
 
-def loss_fn(params, cfg: ModelConfig, tokens, labels, *, aux_weight: float = 0.01
-            ) -> Tuple[torch.Tensor, Dict]:
-    logits, aux = forward(params, cfg, tokens)
+def loss_fn(params, cfg: ModelConfig, tokens, labels, *, aux_weight: float = 0.01,
+            batch_mean=None) -> Tuple[torch.Tensor, Dict]:
+    logits, aux = forward(params, cfg, tokens, batch_mean=batch_mean)
     loss = softmax_xent(logits, labels)
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux}
@@ -161,7 +161,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, s_max: int, *, ring_local: b
 def _check_positions(cache: Dict, pos: torch.Tensor) -> None:
     """Every row's position must lie inside the full-length KV cache."""
     kv = cache.get("kv", cache.get("kv_global"))
-    if kv is None:  # a pure SSM state has no length
+    if kv is None or pos.is_meta:  # a pure SSM state has no length; meta has no values
         return
     s_max = kv["k"].shape[-3]
     lo, hi = (int(v) for v in torch.aminmax(pos))

@@ -6,8 +6,9 @@ entry for every leaf (bf16 leaves included), and ``step`` is an int32
 tensor. The update runs in f32 whatever the parameters' dtype and writes
 each weight back as ``master.to(p.dtype)``.
 
-The update is in place: ``update`` rewrites the moments, the masters, the
-step and the parameters themselves, where the reference returns new arrays
+``params`` is an ``LM`` or a ``{name: tensor}`` dict (a sharded step's
+local shards, a toy model's leaves). The update is in place: ``update``
+rewrites the moments, the masters, the step and the parameters themselves, where the reference returns new arrays
 and donates the old ones (``donate_argnums``). ``torch.optim.AdamW`` is not
 this optimizer: it adds eps to ``sqrt(v) / sqrt(1 - b2^t)``, decays the
 weights before the step and keeps no f32 master for bf16 leaves.
@@ -19,6 +20,10 @@ import math
 from typing import Callable, Dict, Mapping, NamedTuple
 
 import torch
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    return dict(params) if isinstance(params, Mapping) else dict(params.named_parameters())
 
 
 class AdamWState(NamedTuple):
@@ -57,9 +62,9 @@ class adamw:  # noqa: N801 — factory used like a module constant
 
     @torch.no_grad()
     def init(self, params) -> AdamWState:
-        """Zero moments and f32 copies of ``params`` (an ``LM``), on the
-        parameters' device."""
-        named = dict(params.named_parameters())
+        """Zero moments and f32 copies of ``params`` (an ``LM`` or a
+        ``{name: tensor}`` dict), on the parameters' device."""
+        named = _named(params)
         dev = next(iter(named.values())).device
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -71,15 +76,19 @@ class adamw:  # noqa: N801 — factory used like a module constant
         )
 
     @torch.no_grad()
-    def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState, params) -> torch.Tensor:
+    def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState, params, *,
+               gnorm: torch.Tensor | None = None) -> torch.Tensor:
         """One step from ``grads`` (``{name: gradient}``), in place on
         ``state`` and ``params``; returns the global gradient norm (before
-        clipping), an f32 tensor on the device (no host sync)."""
-        named = dict(params.named_parameters())
+        clipping), an f32 tensor on the device (no host sync). A sharded
+        step passes ``gnorm``, the norm of the whole gradient, which its
+        local shards cannot give."""
+        named = _named(params)
         state.step.add_(1)
         step = state.step
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in grads.values()))
+        if gnorm is None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                                   for g in grads.values()))
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         lr = self._lr(step)
         stepf = step.to(torch.float32)

@@ -153,3 +153,25 @@ def test_train_and_launchers_import_no_jax_and_touch_no_device():
     out = subprocess.run([sys.executable, "-c", TRAIN], env=env, capture_output=True,
                          text=True, check=True).stdout.split()
     assert out == ["none", "False", "False"], f"loaded: {out}"
+
+
+DISTRIBUTED_TRAINING = """
+import sys
+import repro_torch.distributed, repro_torch.launch.dryrun
+from repro_torch.distributed import comm, compat, compression, elastic, fsdp, sharding
+from repro_torch.distributed.compat import abstract_mesh
+from repro_torch.distributed.elastic import ElasticRunner, remesh
+from repro_torch.distributed.fsdp import make_sharded_train_step
+from repro_torch.train.dp_trainer import make_dp_train_step
+from repro_torch.launch import dryrun, hlo, inspect_cell, report, roofline
+import torch
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(",".join(bad) or "none", torch.cuda.is_initialized(), torch.distributed.is_initialized())
+"""
+
+
+def test_distributed_training_and_dryrun_import_no_jax_and_touch_no_device():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", DISTRIBUTED_TRAINING], env=env,
+                         capture_output=True, text=True, check=True).stdout.split()
+    assert out == ["none", "False", "False"], f"loaded: {out}"

@@ -1,0 +1,160 @@
+"""The JAX package's side of ``test_torch_train_dist.py``, on eight host
+devices (run with ``XLA_FLAGS=--xla_force_host_platform_device_count=8``).
+
+    python tests/torch_train_dist_ref.py OUT.npz
+
+Writes, from numpy seeds shared with ``torch_train_dist_worker.py``:
+
+* ``shard/<i>``: ``NamedSharding(mesh, spec).devices_indices_map`` of
+  ``SHARD_CASES[i]`` on a (pod 2, data 2, model 2) mesh, as [8, ndim, 2]
+  (start, stop) in the mesh's device order;
+* ``psum/<round>/<leaf>/mean|resid``: ``compressed_psum`` under
+  ``shard_map`` over four devices, two rounds (the second from the first's
+  residual), stacked over the ranks;
+* ``dp/<compress>``: eight losses of ``make_dp_train_step`` on the f32
+  SMOKE llama3.2-1b over four devices (data 4, model 1), from
+  ``init_params(cfg, PRNGKey(0))``;
+* ``elastic/w``: the toy quadratic's final ``w`` after ``ElasticRunner``
+  went from four devices to two at step 17;
+* ``fsdp/<arch>/<layout>/metrics`` and ``.../param<keystr>``: the loss,
+  grad norm and final parameters of ``make_train_step`` jitted with
+  ``in_shardings`` from ``param_specs`` / ``opt_state_specs`` /
+  ``batch_spec`` (GSPMD, as ``launch/train.py`` runs it) on a (data 2,
+  model 2) and a (pod 2, data 2, model 1) mesh of four devices,
+  ``FSDP_STEPS`` steps of the f32 SMOKE config from ``init_params(cfg,
+  PRNGKey(0))``.
+"""
+import dataclasses
+import sys
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from repro.configs import get_config
+from repro.distributed.compat import shard_map
+from repro.distributed.compression import compressed_psum
+from repro.distributed.elastic import ElasticRunner
+from repro.distributed.sharding import batch_spec, opt_state_specs, param_specs
+from repro.models import init_params, make_train_step
+from repro.train import CheckpointManager, adamw
+from repro.train.dp_trainer import make_dp_train_step
+
+import torch_train_dist_worker as case
+
+
+def shard_maps(out):
+    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 2, 2), ("pod", "data", "model"))
+    for i, (shape, spec) in enumerate(case.SHARD_CASES):
+        idx = NamedSharding(mesh, P(*spec)).devices_indices_map(shape)
+        rows = []
+        for dev in mesh.devices.flat:
+            rows.append([[s.start or 0, s.stop if s.stop is not None else n]
+                         for s, n in zip(idx[dev], shape)])
+        out[f"shard/{i}"] = np.array(rows, np.int64)
+
+
+def psum(out):
+    mesh = Mesh(np.array(jax.devices()[:case.WORLD]), ("data",))
+    grads, resid = case.psum_inputs()
+    fn = jax.jit(shard_map(lambda g, r: compressed_psum(g, r, "data"), mesh,
+                           (P("data"), P("data")), (P("data"), P("data"))))
+    g = {k: jnp.asarray(v.reshape((-1,) + v.shape[2:])) for k, v in grads.items()}
+    r = {k: jnp.asarray(v.reshape((-1,) + v.shape[2:])) for k, v in resid.items()}
+    for rnd in range(2):
+        means, r = fn(g, r)
+        for k in g:
+            out[f"psum/{rnd}/{k}/mean"] = np.asarray(means[k]).reshape(grads[k].shape)
+            out[f"psum/{rnd}/{k}/resid"] = np.asarray(r[k]).reshape(grads[k].shape)
+
+
+def dp(out):
+    cfg = dataclasses.replace(get_config("llama3.2-1b", smoke=True), dtype="float32")
+    mesh = Mesh(np.array(jax.devices()[:case.WORLD]).reshape(case.WORLD, 1), ("data", "model"))
+    batch = case.dp_batch(cfg)
+    for compress in (False, True):
+        params = init_params(cfg, jax.random.PRNGKey(0))
+        init_state, step = make_dp_train_step(cfg, adamw(lr=case.DP_LR), mesh,
+                                              compress_grads=compress)
+        # f32 masters alias the f32 parameters (astype to the same dtype),
+        # and the jitted step donates both: copy every leaf first
+        state = jax.tree_util.tree_map(lambda x: jnp.array(x, copy=True), init_state(params))
+        losses = []
+        for _ in range(case.DP_STEPS):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        out[f"dp/{int(compress)}"] = np.array(losses)
+
+
+def elastic(out):
+    opt = adamw(lr=0.1, weight_decay=0.0)
+
+    def make_step(mesh):
+        def step(state, batch):
+            def loss_fn(p):
+                return jnp.mean((batch["x"] @ p["w"] - batch["y"]) ** 2)
+            g = jax.grad(loss_fn)(state["params"])
+            new_p, new_o, _ = opt.update(g, state["opt"], state["params"])
+            return {"params": new_p, "opt": new_o}
+        return jax.jit(step)
+
+    def state_specs(mesh):
+        return jax.tree_util.tree_map(lambda _: P(),
+                                      {"params": {"w": 0}, "opt": opt.init({"w": jnp.zeros((4,))})})
+
+    w0, batches = case.elastic_inputs()
+    w0 = {"w": jnp.asarray(w0)}
+    state = {"params": w0, "opt": opt.init(w0)}
+    with tempfile.TemporaryDirectory() as d:
+        runner = ElasticRunner(ckpt=CheckpointManager(d, keep=2),
+                               make_mesh=lambda n: jax.make_mesh((n,), ("data",)),
+                               make_step=make_step, state_specs=state_specs, ckpt_every=5)
+        state, steps, restarts = runner.run(state, batches, n_devices=case.WORLD,
+                                            fail_at=case.FAIL_AT, recover_devices=case.WORLD // 2)
+    assert steps == len(batches) and restarts == 1
+    out["elastic/w"] = np.asarray(state["params"]["w"])
+
+
+def fsdp(out):
+    shapes = {"data2_model2": ((2, 2), ("data", "model")),
+              "pod2_data2": ((2, 2, 1), ("pod", "data", "model"))}
+    assert set(shapes) == set(case.FSDP_LAYOUTS)
+    for arch in case.FSDP_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        params = init_params(cfg, jax.random.PRNGKey(0))
+        opt = adamw(lr=case.FSDP_LR)
+        for layout, (shape, names) in shapes.items():
+            mesh = Mesh(np.array(jax.devices()[:case.WORLD]).reshape(shape), names)
+            pspecs = param_specs(params, cfg, mesh)
+            ospecs = opt_state_specs(opt.init(params), pspecs)
+            ns = lambda t: jax.tree_util.tree_map(lambda sp: NamedSharding(mesh, sp), t)
+            bshard = NamedSharding(mesh, batch_spec(mesh, (case.FSDP_BATCH, case.FSDP_SEQ)))
+            step = jax.jit(make_train_step(cfg, opt),
+                           in_shardings=(ns(pspecs), ns(ospecs), {"tokens": bshard, "labels": bshard}),
+                           out_shardings=(ns(pspecs), ns(ospecs), NamedSharding(mesh, P())))
+            p = jax.device_put(params, ns(pspecs))
+            o = jax.device_put(opt.init(params), ns(ospecs))
+            metrics = []
+            for batch in case.fsdp_batches(cfg):
+                p, o, m = step(p, o, batch)
+                metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            key = f"fsdp/{arch}/{layout}"
+            out[f"{key}/metrics"] = np.array(metrics)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(p)[0]:
+                out[f"{key}/param{jax.tree_util.keystr(path)}"] = np.asarray(leaf)
+
+
+def main(path):
+    out = {}
+    shard_maps(out)
+    psum(out)
+    dp(out)
+    elastic(out)
+    fsdp(out)
+    np.savez(path, **out)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])
