@@ -1,6 +1,8 @@
-"""The sharded train step (ZeRO-3 over a ``TrainMesh``): what GSPMD makes of
-the reference's ``jax.jit(train_step, in_shardings=...)`` (``launch/train.py``,
-``launch/dryrun.py``), written out over a process group.
+"""The sharded train step (ZeRO-3 over a ``TrainMesh``, with tensor and
+expert parallelism over its ``model`` axis): what GSPMD makes of the
+reference's ``jax.jit(train_step, in_shardings=...)`` (``launch/train.py``,
+``launch/dryrun.py``), written out over a process group; and the sharded
+prefill and decode steps beside it.
 
 * **State.** Every parameter and every AdamW ``mu``/``nu``/``master`` leaf
   lives only as this rank's slice under ``sharding.param_specs`` /
@@ -8,29 +10,42 @@ the reference's ``jax.jit(train_step, in_shardings=...)`` (``launch/train.py``,
   the product of its spec's axes.
 * **Forward and backward.** The model reads its parameters as attributes
   (``models/layers.py``); the step hands it a tree of the same shape whose
-  leaves are gathered when they are read (``_Gather``: one ``all_gather``
-  over the union of the leaf's spec axes), so a layer's weights exist whole only
-  while it runs and while autograd keeps them for its backward, and a
-  recomputed block (``cfg.remat``) gathers them again. The step runs on
-  this rank's rows of the batch (``batch_spec``).
-* **Gradients.** ``_Gather``'s backward means the whole gradient of a read
-  over the batch axes (``all_reduce``, in the gradient's dtype, then a
-  divide, as ``pmean``) and keeps this rank's slice. The gradient norm is
-  the whole meaned gradient's: each rank sums its slices' squares, each
-  divided by the number of ranks that hold the same slice, and one
-  ``all_reduce`` over the mesh adds them, so every rank clips alike. Each
-  rank then applies AdamW to its own slices (``optimizer.update(...,
-  gnorm=)``).
+  leaves are gathered when they are read (``_Gather``), so a layer's weights
+  exist only while it runs and while autograd keeps them for its backward,
+  and a recomputed block (``cfg.remat``) gathers them again. The step runs
+  on this rank's rows of the batch (``batch_spec``).
+* **Tensor and expert parallelism.** A leaf that a tensor- or
+  expert-parallel product reads (``read_policy``: ``wq``/``wo``, the MLP's
+  and the shared experts' matrices, ``e_*``, ``table``/``heads``, and
+  ``wk``/``wv`` when the KV heads split over ``model``) is gathered over its
+  batch axes only and stays this rank's ``model`` slice: the layers run
+  their share of each product (Megatron's column- then row-parallel split,
+  experts over ranks, a vocabulary split over ranks) and combine it over
+  the model group (``comm.copy_to_model`` / ``reduce_from_model``, passed
+  as ``tp``). ``wk``/``wv`` whose KV heads do not split (fewer KV heads than
+  ranks) are gathered whole, and each rank keeps the heads its query heads
+  read; their gradient sums the ranks' parts. The Mamba blocks'
+  leaves are gathered whole and every rank of the group repeats their
+  compute: their ``d_inner`` split is not ported. Norms and the ``router``
+  are replicated over ``model``.
+* **Gradients.** ``_Gather``'s backward means the gradient of a read over
+  the batch axes (``all_reduce``, in the gradient's dtype, then a divide,
+  as ``pmean``; summed over ``model`` too for a whole ``wk``/``wv``) and
+  keeps this rank's slice. A replicated leaf's gradient is whole on every
+  rank of the model group (the activations it touches are whole there).
+  The gradient norm is the whole meaned gradient's: each rank sums its
+  slices' squares, each divided by the number of ranks that hold the same
+  slice, and one ``all_reduce`` over the mesh adds them, so every rank
+  clips alike. Each rank then applies AdamW to its own slices
+  (``optimizer.update(..., gnorm=)``).
 * **MoE.** The aux loss's token means are taken over the whole batch
   (``loss_fn``'s ``batch_mean``), as the one-process step takes them.
 
-The model axis holds slices, but its ranks repeat the compute: each gathers
-the whole weight and runs the same rows. Real tensor parallelism is not
-here (DTensor does not cover the port's ops, ``layers._MatmulF32`` among
-them; ROADMAP C). The loss, grad norm and parameters equal the one-process
+The loss, grad norm and parameters equal the one-process
 ``make_train_step``'s up to the order of float sums.
 
-Every collective goes through ``distributed.comm`` and is counted there.
+Every collective goes through ``distributed.comm`` and is counted there;
+the model group's carry ``tp`` tags (``comm.counts(tp=True)``).
 """
 from __future__ import annotations
 
@@ -43,16 +58,20 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import (
+    P,
     _axes,
     batch_spec,
+    cache_specs,
+    leaf_name,
     local_shard,
     mesh_sizes,
     opt_state_specs,
     param_specs,
     spec_size,
 )
+from repro_torch.models.attention import all_kv_heads
 from repro_torch.models.model import init_params_shapes
-from repro_torch.models.steps import loss_fn
+from repro_torch.models.steps import decode_step, init_decode_state, loss_fn, prefill_step
 from repro_torch.train.optimizer import AdamWState
 
 
@@ -80,23 +99,50 @@ def _batch_axes(spec) -> tuple:
     return _axes(spec[0]) if len(spec) else ()
 
 
+# leaves whose ``model`` slice a tensor- or expert-parallel product reads
+_MODEL_SLICED = frozenset({"wq", "wo", "w_in", "w_gate", "w_out", "e_in", "e_gate", "e_out",
+                           "s_in", "s_gate", "s_out", "table", "heads"})
+
+
+def read_policy(name: str, cfg: ModelConfig, mesh) -> str:
+    """How the layers read parameter ``name`` on ``mesh``: ``"slice"`` (this
+    rank's ``model`` slice), ``"parts"`` (whole, each rank of the model group
+    using its part: ``wk``/``wv`` whose KV heads do not split over
+    ``model``) or ``"whole"`` (whole, every rank of the model group
+    computing alike: the Mamba blocks, and leaves replicated over
+    ``model``)."""
+    leaf = leaf_name(name)
+    if leaf in ("wk", "wv"):
+        return "slice" if cfg.num_kv_heads % mesh_sizes(mesh)["model"] == 0 else "parts"
+    return "slice" if leaf in _MODEL_SLICED else "whole"
+
+
+def _drop_model(spec):
+    """``spec`` without its ``model`` entries."""
+    return P(*(tuple(a for a in _axes(e) if a != "model") or None for e in spec))
+
+
 class _Gather(torch.autograd.Function):
-    """Forward: the whole leaf from its slice. Backward: the whole gradient
-    meaned over the batch axes, then this rank's slice."""
+    """Forward: the leaf from its slice, whole or (``read`` "slice") still
+    this rank's ``model`` slice. Backward: the gradient meaned over the
+    batch axes (and, for ``"parts"``, summed over ``model``), then this
+    rank's slice."""
 
     @staticmethod
-    def forward(ctx, shard, spec, mesh, batch_axes, tag):
-        ctx.spec, ctx.mesh, ctx.batch_axes, ctx.tag = spec, mesh, batch_axes, tag
-        return gather(shard, spec, mesh, tag)
+    def forward(ctx, shard, spec, mesh, batch_axes, tag, read):
+        ctx.spec = _drop_model(spec) if read == "slice" else spec
+        ctx.mesh, ctx.batch_axes, ctx.tag = mesh, batch_axes, tag
+        ctx.sum_axes = batch_axes + ("model",) if read == "parts" else batch_axes
+        return gather(shard, ctx.spec, mesh, tag)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.batch_axes:
+        if ctx.sum_axes:
             g = g.clone(memory_format=torch.contiguous_format)
-            group = ctx.mesh.group(ctx.batch_axes)
-            comm.all_reduce(g, group, tag=ctx.tag)
-            g.div_(torch.distributed.get_world_size(group))
-        return local_shard(g, ctx.spec, ctx.mesh, ctx.mesh.coord), None, None, None, None
+            comm.all_reduce(g, ctx.mesh.group(ctx.sum_axes), tag=ctx.tag)
+            if ctx.batch_axes:
+                g.div_(torch.distributed.get_world_size(ctx.mesh.group(ctx.batch_axes)))
+        return local_shard(g, ctx.spec, ctx.mesh, ctx.mesh.coord), None, None, None, None, None
 
 
 class _BatchMean(torch.autograd.Function):
@@ -140,13 +186,14 @@ def _view(module: nn.Module, prefix: str, fetch):
     return _Gathered(module, prefix, fetch)
 
 
-def gathered_view(template: nn.Module, shards: Mapping[str, torch.Tensor], specs, mesh,
+def gathered_view(template: nn.Module, shards: Mapping[str, torch.Tensor], specs, mesh, reads,
                   batch_axes=()):
     """``template``'s tree (an ``LM``, on ``meta``) over ``shards``: each
-    parameter read gathers its leaf; its gradient, meaned over
-    ``batch_axes``, reaches the slice."""
+    parameter read gathers its leaf as ``reads[name]`` says
+    (``read_policy``); its gradient, meaned over ``batch_axes``, reaches the
+    slice."""
     return _view(template, "", lambda name: _Gather.apply(shards[name], specs[name], mesh,
-                                                          batch_axes, name))
+                                                          batch_axes, name, reads[name]))
 
 
 def _named(params) -> Dict[str, torch.Tensor]:
@@ -181,6 +228,8 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer, mesh):
     checkpoint."""
     template = init_params_shapes(cfg)
     specs = param_specs(template, cfg, mesh)
+    reads = {n: read_policy(n, cfg, mesh) for n in specs}
+    tp = mesh.model_group()
     n_mesh = mesh.size
     repl = {n: n_mesh // spec_size(mesh, s) for n, s in specs.items()}
 
@@ -213,10 +262,10 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer, mesh):
         n_batch = torch.distributed.get_world_size(b_group) if b_axes else 1
         for t in shards.values():
             t.requires_grad_(True)
-        tree = gathered_view(template, shards, specs, mesh, b_axes)
+        tree = gathered_view(template, shards, specs, mesh, reads, b_axes)
         mean = (lambda x: _BatchMean.apply(x, b_group, n_batch)) if b_axes else None
         with torch.enable_grad():
-            total, metrics = loss_fn(tree, cfg, tokens, labels, batch_mean=mean)
+            total, metrics = loss_fn(tree, cfg, tokens, labels, batch_mean=mean, tp=tp)
             grads = torch.autograd.grad(total, list(shards.values()), materialize_grads=True)
         grads = dict(zip(shards, grads))
         sq = sum(torch.sum(torch.square(g.to(torch.float32))) / repl[n] for n, g in grads.items())
@@ -231,3 +280,98 @@ def make_sharded_train_step(cfg: ModelConfig, optimizer, mesh):
     step.specs = specs
     step.unshard = unshard
     return shard_state, step
+
+
+# --- the sharded prefill and decode ----------------------------------------------------
+
+
+def _map_state(fn, tree, specs):
+    """``fn(key, leaf, spec)`` over a decode state's leaves."""
+    return {k: _map_state(fn, v, specs[k]) if isinstance(v, Mapping) else fn(k, v, specs[k])
+            for k, v in tree.items()}
+
+
+def _model_only(spec):
+    """``spec`` with only its ``model`` entries."""
+    return P(*(e if e == "model" else None for e in spec))
+
+
+def _heads_local(key: str, spec) -> bool:
+    """A K/V leaf whose heads split over ``model``: its slice is the KV
+    heads this rank's query heads read."""
+    return key in ("k", "v") and len(spec) >= 2 and spec[-2] == "model"
+
+
+def _whole_for_step(key: str, spec) -> bool:
+    """A leaf the step reads gathered over ``model``: a K/V cache of every
+    head (its sequence split over ``model``) and the Mamba states."""
+    return "model" in spec and not _heads_local(key, spec)
+
+
+def state_specs(cfg: ModelConfig, mesh, batch: int, s_max: int, ring_local: bool = False):
+    """``cache_specs`` of a decode state of the global ``batch`` and length
+    ``s_max``."""
+    return cache_specs(init_decode_state(cfg, batch, s_max, ring_local=ring_local, device="meta"),
+                       cfg, mesh)
+
+
+def shard_cache(cache, specs, mesh):
+    """This rank's slices of a whole decode state under ``specs``."""
+    return _map_state(lambda k, t, sp: local_shard(t, sp, mesh, mesh.coord).clone(), cache, specs)
+
+
+def gather_cache(cache, specs, mesh):
+    """The whole decode state from this rank's slices (every rank gets it)."""
+    with torch.no_grad():
+        return _map_state(lambda k, t, sp: gather(t, sp, mesh, "cache"), cache, specs)
+
+
+def make_sharded_serve_steps(cfg: ModelConfig, mesh):
+    """Returns ``(prefill, decode)`` over a ``TrainMesh``'s parameter slices
+    (``shard_tree`` or ``make_sharded_train_step``'s ``shard_state``), the
+    counterparts of the reference's dry-run lowering ``prefill_step`` and
+    ``decode_step`` with shardings.
+
+    * ``prefill(shards, tokens, specs) -> (logits, cache)``: ``tokens`` the
+      global prompt batch; the step runs this rank's rows (``batch_spec``)
+      and returns their last logits over this rank's rows of the
+      vocabulary ``[b, (K,) V/model]`` and their decode state of the
+      prompt's length under ``specs`` (``state_specs(cfg, mesh, batch,
+      prompt)``);
+    * ``decode(shards, cache, specs, tokens, pos) -> (logits, cache)``: one
+      token of the global batch against this rank's decode state (held
+      under ``specs``). A cache whose heads split over ``model`` is read and
+      written in place; one of every KV head (its sequence on ``model``:
+      few KV heads on a wide group) and the Mamba states are gathered over
+      ``model`` for the step and sliced again after it."""
+    template = init_params_shapes(cfg)
+    specs = param_specs(template, cfg, mesh)
+    reads = {n: read_policy(n, cfg, mesh) for n in specs}
+    tp = mesh.model_group()
+    coord = mesh.coord
+
+    def rows(t):
+        t = torch.as_tensor(t, device=mesh.device)
+        return local_shard(t, batch_spec(mesh, tuple(t.shape)), mesh, coord)
+
+    def place(key, t, spec):
+        if _heads_local(key, spec):
+            return t
+        if key in ("k", "v"):
+            t = all_kv_heads(t, cfg.num_heads, cfg.num_kv_heads, tp)
+        return local_shard(t, _model_only(spec), mesh, coord).clone() if "model" in spec else t
+
+    def prefill(shards, tokens, cspecs):
+        tree = gathered_view(template, shards, specs, mesh, reads)
+        logits, cache = prefill_step(tree, cfg, rows(tokens), tp=tp)
+        return logits, _map_state(place, cache, cspecs)
+
+    def decode(shards, cache, cspecs, tokens, pos):
+        tree = gathered_view(template, shards, specs, mesh, reads)
+        whole = _map_state(lambda k, t, sp: gather(t, _model_only(sp), mesh, "cache")
+                           if _whole_for_step(k, sp) else t, cache, cspecs)
+        logits, whole = decode_step(tree, cfg, whole, rows(tokens), rows(pos), tp=tp)
+        return logits, _map_state(lambda k, t, sp: local_shard(t, _model_only(sp), mesh, coord)
+                                  .clone() if _whole_for_step(k, sp) else t, whole, cspecs)
+
+    return prefill, decode

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.comm import ModelGroup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +177,14 @@ class TrainMesh:
     @property
     def size(self) -> int:
         return len(self.ranks)
+
+    def model_group(self):
+        """This rank's ``model`` group, its size and this rank's index in it
+        (``comm.ModelGroup``): the ranks that split each layer's work. At
+        model 1 it is a one-rank group, and the layers run the same code."""
+        return ModelGroup(group=self.group("model"),
+                          size=int(self.shape[self.axis_names.index("model")]),
+                          rank=self.coord["model"])
 
     def group(self, axes):
         """This rank's group over ``axes`` (a name or a tuple of names)."""

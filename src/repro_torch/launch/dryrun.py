@@ -15,10 +15,14 @@ port runs the step itself, eagerly, on ``meta`` tensors:
 * **the step:** train cells run ``distributed.fsdp``'s sharded step on
   rank 0's ``meta`` slices (parameters and AdamW state under
   ``param_specs`` / ``opt_state_specs``, its rows of the batch); prefill
-  and decode cells run ``prefill_step`` / ``decode_step`` over the same
-  gathered parameters, on rank 0's rows, the decode state held under
-  ``cache_specs`` and gathered over ``model`` for the step (the model axis
-  repeats the compute, ROADMAP C);
+  and decode cells run ``fsdp.make_sharded_serve_steps`` over the same
+  parameter slices, on rank 0's rows, the decode state held under
+  ``cache_specs``. Rank 0 computes only its share of each layer: its query
+  heads, its ``d_ff`` slice, its experts and its rows of the vocabulary,
+  combined over the ``model`` group. A cache whose sequence lies on
+  ``model`` (fewer KV heads than ranks) is gathered over ``model`` for the
+  decode step, and the Mamba blocks' work is repeated on every rank of the
+  group (their ``d_inner`` split is not ported, ROADMAP A14b);
 * **FLOPs:** ``torch.utils.flop_counter.FlopCounterMode`` (recomputation
   under ``cfg.remat`` included);
 * **bytes accessed:** the input and output bytes of every dispatched
@@ -67,13 +71,12 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import SHAPES, ModelConfig, get_config, shape_supported
 from repro_torch.configs.registry import ARCH_NAMES
 from repro_torch.distributed import comm
-from repro_torch.distributed.sharding import P, batch_spec, cache_specs, local_shard
+from repro_torch.distributed.sharding import batch_spec, local_shard
 from repro_torch.kernels import bounds
 from repro_torch.launch import hlo as hlo_lib
 from repro_torch.launch import roofline as roof_lib
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import init_decode_state, init_params_shapes, param_count
-from repro_torch.models.steps import decode_step, prefill_step
 from repro_torch.train import adamw
 
 S32 = torch.int32
@@ -193,21 +196,11 @@ def _state_bytes(tree) -> int:
     return sum(_nbytes(t) for t in tree_flatten(tree)[0])
 
 
-def _model_only(spec) -> P:
-    """``spec`` with only its ``model`` entries: rank 0's rows hold every
-    batch-axis slice already."""
-    return P(*(e if e == "model" else None for e in spec))
-
-
-def _map_cache(fn, cache, specs):
-    return {k: _map_cache(fn, v, specs[k]) if isinstance(v, dict) else fn(v, specs[k])
-            for k, v in cache.items()}
-
-
 def _build_step(cfg: ModelConfig, shape_name: str, mesh):
     """The cell's step on rank 0: (run() -> outputs, argument bytes,
     tokens_per_step)."""
-    from repro_torch.distributed.fsdp import gather, gathered_view, make_sharded_train_step
+    from repro_torch.distributed.fsdp import (make_sharded_serve_steps, make_sharded_train_step,
+                                              shard_cache, state_specs)
 
     sh = SHAPES[shape_name]
     ins = input_specs(cfg, shape_name)
@@ -215,40 +208,28 @@ def _build_step(cfg: ModelConfig, shape_name: str, mesh):
     shard_state, step = make_sharded_train_step(cfg, opt, mesh)
     state = shard_state(init_params_shapes(cfg))
     coord = mesh.coord
+
+    def local_bytes(t):
+        return _nbytes(local_shard(t, batch_spec(mesh, t.shape), mesh, coord))
+
     if sh.kind == "train":
         batch = {"tokens": ins["tokens"], "labels": ins["labels"]}
-        args = _state_bytes(state) + sum(_nbytes(local_shard(t, batch_spec(mesh, t.shape), mesh,
-                                                             coord)) for t in batch.values())
+        args = _state_bytes(state) + sum(local_bytes(t) for t in batch.values())
         return (lambda: step(state, batch)), args, sh.global_batch * sh.seq_len
-    template = init_params_shapes(cfg)
-    tree = gathered_view(template, state["params"], step.specs, mesh)
-    tokens = local_shard(ins["tokens"], batch_spec(mesh, ins["tokens"].shape), mesh, coord)
-    params_bytes = _state_bytes(state["params"])
+    shards = state["params"]
     del state["opt"]
+    prefill, decode = make_sharded_serve_steps(cfg, mesh)
+    tokens = ins["tokens"]
     if sh.kind == "prefill":
-        cache_g = init_decode_state(cfg, sh.global_batch, sh.seq_len, device=META)
-        cspecs = cache_specs(cache_g, cfg, mesh)
-
-        def run():
-            logits, cache = prefill_step(tree, cfg, tokens)
-            return logits, _map_cache(lambda t, s: local_shard(t, _model_only(s), mesh, coord),
-                                      cache, cspecs)
-
-        return run, params_bytes + _nbytes(tokens), sh.global_batch * sh.seq_len
-    cache_g = init_decode_state(cfg, sh.global_batch, sh.seq_len, ring_local=cfg.ring_local,
-                                device=META)
-    cspecs = cache_specs(cache_g, cfg, mesh)
-    cache = _map_cache(lambda t, s: local_shard(t, s, mesh, coord).clone(), cache_g, cspecs)
-    pos = local_shard(ins["pos"], batch_spec(mesh, ins["pos"].shape), mesh, coord)
-
-    def run():
-        whole = _map_cache(lambda t, s: gather(t, _model_only(s), mesh, "cache"), cache, cspecs)
-        logits, whole = decode_step(tree, cfg, whole, tokens, pos)
-        return logits, _map_cache(lambda t, s: local_shard(t, _model_only(s), mesh, coord),
-                                  whole, cspecs)
-
-    args = params_bytes + _state_bytes(cache) + _nbytes(tokens) + _nbytes(pos)
-    return run, args, sh.global_batch
+        cspecs = state_specs(cfg, mesh, sh.global_batch, sh.seq_len)
+        return ((lambda: prefill(shards, tokens, cspecs)),
+                _state_bytes(shards) + local_bytes(tokens), sh.global_batch * sh.seq_len)
+    cspecs = state_specs(cfg, mesh, sh.global_batch, sh.seq_len, ring_local=cfg.ring_local)
+    cache = shard_cache(init_decode_state(cfg, sh.global_batch, sh.seq_len,
+                                          ring_local=cfg.ring_local, device=META), cspecs, mesh)
+    pos = ins["pos"]
+    args = _state_bytes(shards) + _state_bytes(cache) + local_bytes(tokens) + local_bytes(pos)
+    return (lambda: decode(shards, cache, cspecs, tokens, pos)), args, sh.global_batch
 
 
 def measure(run) -> Dict:

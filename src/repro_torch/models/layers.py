@@ -10,12 +10,21 @@ with attributes of those names will do. Weights keep the reference's orientation
 parameters uninitialised (``torch.empty``, usually on the ``meta`` device);
 ``model.init_params`` draws them and ``convert.params_from_numpy`` carries
 the reference's across.
+
+Under tensor parallelism (``tp``, a ``distributed.comm.ModelGroup``) each
+rank holds its ``model`` slice of a leaf and the layers run Megatron's
+split: the MLP's ``w_in``/``w_gate`` column-parallel and ``w_out``
+row-parallel with one all-reduce, and the embedding and tied unembedding
+over the rank's rows of the vocabulary (``tp=None``: one process, the whole
+leaf, no collective).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.comm import copy_to_model, reduce_from_model
 
 
 def param(shape, dtype, device) -> nn.Parameter:
@@ -129,10 +138,14 @@ def activate(h: torch.Tensor, mlp_type: str, gate_in=None) -> torch.Tensor:
     raise ValueError(f"unknown mlp_type {mlp_type}")
 
 
-def mlp(p, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+def mlp(p, x: torch.Tensor, mlp_type: str, tp=None) -> torch.Tensor:
+    """``w_in``/``w_gate`` [D, F/model] and ``w_out`` [F/model, D]: the
+    activation acts on this rank's slice of ``d_ff``, and the row-parallel
+    products' partial sums combine in one all-reduce."""
+    x = copy_to_model(x, tp)
     h = x @ p.w_in
     gate_in = x @ p.w_gate if mlp_type == "swiglu" else None
-    return activate(h, mlp_type, gate_in) @ p.w_out
+    return reduce_from_model(activate(h, mlp_type, gate_in) @ p.w_out, tp)
 
 
 # --- Embedding / unembedding ------------------------------------------------------
@@ -147,10 +160,26 @@ class Embedding(nn.Module):
         self.table = param(shape, dtype, device)
 
 
-def embed(p, ids: torch.Tensor) -> torch.Tensor:
-    return p.table[ids]
+def lookup(table: torch.Tensor, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """Rows ``ids`` of a vocabulary split over the model group: each rank
+    looks up the ids among its rows [V/model, D], writes zeros for the rest,
+    and one all-reduce combines them (exact: one rank's row and zeros).
+    Without a group it is ``table[ids]``, which raises on an id outside
+    [0, V); in a group an id outside every rank's rows reads zeros."""
+    if tp is None:
+        return table[ids]
+    n = table.shape[0]
+    local = ids.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return reduce_from_model(torch.where(inside[..., None], rows, rows.new_zeros(())), tp)
 
 
-def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: [., D] @ [D, V] -> f32 logits."""
-    return matmul_f32(x, p.table.T)
+def embed(p, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    return lookup(p.table, ids, tp)
+
+
+def unembed(p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Tied unembedding: [., D] @ [D, V/model] -> f32 logits over this
+    rank's rows of the vocabulary."""
+    return matmul_f32(copy_to_model(x, tp), p.table.T)

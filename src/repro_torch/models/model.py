@@ -22,6 +22,14 @@ same values there and changes nothing here). ``_maybe_remat`` wraps each
 layer block (a superblock for gemma3 and zamba2) where the reference wraps
 its scan body: ``cfg.remat`` changes what the backward pass keeps, never a
 value.
+
+``tp`` (a ``distributed.comm.ModelGroup``, ``None`` in one process) is the
+model group the tensor-parallel step splits each layer's work over
+(``layers``, ``attention``, ``moe``): the embedding and the logits over
+this rank's rows of the vocabulary (musicgen's ``heads`` per codebook),
+attention and MLP blocks column- then row-parallel, MoE layers over this
+rank's experts. The Mamba blocks read their leaves whole and every rank of
+the group runs them alike (their ``d_inner`` split is not ported).
 """
 from __future__ import annotations
 
@@ -38,7 +46,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import MLP, Embedding, RMSNorm, embed, matmul_f32, mlp, param, rmsnorm, unembed
+from repro_torch.distributed.comm import copy_to_model
+from repro_torch.models.layers import (MLP, Embedding, RMSNorm, embed, lookup, matmul_f32, mlp, param,
+                                       rmsnorm, unembed)
 
 
 class AttnBlock(nn.Module):
@@ -158,14 +168,14 @@ def param_count(params: nn.Module) -> int:
 # --- blocks ------------------------------------------------------------------------
 
 
-def _ffn(cfg: ModelConfig, p, y: torch.Tensor, group: int, batch_mean=None
+def _ffn(cfg: ModelConfig, p, y: torch.Tensor, group: int, batch_mean=None, tp=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block's MLP or MoE on the normed input; (out, aux)."""
     if cfg.is_moe and getattr(p, "moe", None) is not None:
         return moe_lib.moe(p.moe, y, num_experts=cfg.num_experts, top_k=cfg.top_k,
                            mlp_type=cfg.mlp_type, capacity_factor=cfg.capacity_factor,
-                           group=group, batch_mean=batch_mean)
-    return mlp(p.mlp, y, cfg.mlp_type), torch.zeros((), dtype=torch.float32, device=y.device)
+                           group=group, batch_mean=batch_mean, tp=tp)
+    return mlp(p.mlp, y, cfg.mlp_type, tp), torch.zeros((), dtype=torch.float32, device=y.device)
 
 
 def _attn_kw(cfg: ModelConfig) -> dict:
@@ -173,17 +183,20 @@ def _attn_kw(cfg: ModelConfig) -> dict:
                 head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
 
 
-def _attn_block_kv(cfg: ModelConfig, p, x, positions, window: Optional[int], batch_mean=None):
-    """One attention block over the sequence; (x, aux, (k, v))."""
+def _attn_block_kv(cfg: ModelConfig, p, x, positions, window: Optional[int], batch_mean=None,
+                   tp=None):
+    """One attention block over the sequence; (x, aux, (k, v)), k and v this
+    rank's KV heads."""
     h, kv = attn_lib.attention_with_kv(p.attn, rmsnorm(p.attn_norm, x, cfg.norm_eps), positions,
-                                       window=window, chunk=cfg.attn_chunk, **_attn_kw(cfg))
+                                       window=window, chunk=cfg.attn_chunk, tp=tp, **_attn_kw(cfg))
     x = x + h
-    out, aux = _ffn(cfg, p, rmsnorm(p.mlp_norm, x, cfg.norm_eps), cfg.moe_group, batch_mean)
+    out, aux = _ffn(cfg, p, rmsnorm(p.mlp_norm, x, cfg.norm_eps), cfg.moe_group, batch_mean, tp)
     return x + out, aux, kv
 
 
-def _attn_block(cfg: ModelConfig, p, x, positions, window: Optional[int], batch_mean=None):
-    x, aux, _ = _attn_block_kv(cfg, p, x, positions, window, batch_mean)
+def _attn_block(cfg: ModelConfig, p, x, positions, window: Optional[int], batch_mean=None,
+                tp=None):
+    x, aux, _ = _attn_block_kv(cfg, p, x, positions, window, batch_mean, tp)
     return x, aux
 
 
@@ -237,6 +250,13 @@ def _maybe_remat(fn, cfg: ModelConfig):
     * anything else (``"full"``): ``torch.utils.checkpoint`` of the whole
       block, which keeps its inputs and recomputes the rest.
 
+    Under tensor parallelism the recomputation runs the block's forward
+    collectives again: with ``"dots"`` the row-parallel products' partial
+    sums are kept (``mm``), but the ``reduce_from_model`` all-reduce after
+    each is not a product and runs again in the backward (two a layer, and
+    the MoE layer's one), as does ``"full"``'s; the backward's own
+    ``copy_to_model`` all-reduces run once either way.
+
     Outside a gradient (under ``no_grad``, or when the block's activation
     input needs none: the serving path, whose parameters need none) ``fn``
     runs as it is. Checkpointing recomputes the same operators on the same
@@ -258,20 +278,22 @@ def _maybe_remat(fn, cfg: ModelConfig):
 # --- forward ------------------------------------------------------------------------
 
 
-def _embed_tokens(params, cfg: ModelConfig, tokens) -> torch.Tensor:
+def _embed_tokens(params, cfg: ModelConfig, tokens, tp=None) -> torch.Tensor:
     if cfg.num_codebooks > 1:
         tab = params.embed.table                 # [K, V, D]
-        x = tab[0][tokens[..., 0]]
+        x = lookup(tab[0], tokens[..., 0], tp)
         for k in range(1, cfg.num_codebooks):    # summed in order, in the model's dtype
-            x = x + tab[k][tokens[..., k]]
+            x = x + lookup(tab[k], tokens[..., k], tp)
         return x
-    return embed(params.embed, tokens)
+    return embed(params.embed, tokens, tp)
 
 
-def _logits(params, cfg: ModelConfig, x) -> torch.Tensor:
+def _logits(params, cfg: ModelConfig, x, tp=None) -> torch.Tensor:
+    """f32 logits over this rank's rows of the vocabulary."""
     if cfg.num_codebooks > 1:
+        x = copy_to_model(x, tp)
         return torch.stack([matmul_f32(x, h) for h in params.heads], dim=2)   # [B, S, K, V]
-    return unembed(params.embed, x)
+    return unembed(params.embed, x, tp)
 
 
 def _positions(tokens: torch.Tensor, positions) -> torch.Tensor:
@@ -281,13 +303,13 @@ def _positions(tokens: torch.Tensor, positions) -> torch.Tensor:
     return positions
 
 
-def forward(params, cfg: ModelConfig, tokens, positions=None, *, batch_mean=None
+def forward(params, cfg: ModelConfig, tokens, positions=None, *, batch_mean=None, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits f32, moe aux-loss scalar);
-    ``batch_mean`` goes to every MoE layer whose aux loss is summed
-    (``moe.moe``)."""
+    """Full-sequence forward. Returns (logits f32 over this rank's rows of
+    the vocabulary, moe aux-loss scalar); ``batch_mean`` goes to every MoE
+    layer whose aux loss is summed (``moe.moe``)."""
     positions = _positions(tokens, positions)
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, tp)
     G, P = cfg.layer_groups()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
@@ -298,7 +320,7 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *, batch_mean=None
         def hybrid(h, group):
             for lp in group:
                 h = _ssm_block(cfg, lp, h)
-            return _attn_block(cfg, params.shared_attn, h, positions, None)[0]
+            return _attn_block(cfg, params.shared_attn, h, positions, None, tp=tp)[0]
 
         body = _maybe_remat(hybrid, cfg)
         for group in params.layers:
@@ -306,17 +328,18 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *, batch_mean=None
     elif cfg.attn_pattern == "local_global":
         def local_global(h, group):
             for i, lp in enumerate(group):
-                h, _ = _attn_block(cfg, lp, h, positions, cfg.window_size if i < P - 1 else None)
+                h, _ = _attn_block(cfg, lp, h, positions, cfg.window_size if i < P - 1 else None,
+                                   tp=tp)
             return h
 
         body = _maybe_remat(local_global, cfg)
         for group in params.layers:
             x = body(x, group)
     else:
-        body = _maybe_remat(lambda h, lp: _attn_block(cfg, lp, h, positions, None, batch_mean),
+        body = _maybe_remat(lambda h, lp: _attn_block(cfg, lp, h, positions, None, batch_mean, tp),
                             cfg)
         for lp in params.layers:
             x, a = body(x, lp)
             aux = aux + a
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x, tp), aux

@@ -18,6 +18,17 @@ of the batch (``distributed.fsdp``) passes ``batch_mean`` (through
 ``loss_fn`` and ``forward``) so that both means are the whole batch's, as
 under the reference's GSPMD step; the data-parallel trainer, like the
 reference's ``shard_map`` one, keeps each replica's own.
+
+Under expert parallelism (``tp``) every rank of the model group holds the
+same tokens (the batch is split over the batch axes only), so each routes
+every token as the one-process layer does: the ``router`` is replicated and
+the capacity positions and the aux loss come out the same on every rank.
+A rank then runs only its ``E/model`` experts (``e_*`` arrive as its slice)
+and the shared experts' ``d_ff`` slice, and one all-reduce combines the
+ranks' partial outputs; no all-to-all is needed while the tokens are
+replicated over ``model``. The routing weights enter the rank's combine
+through ``copy_to_model``, so the router's gradient sums every rank's
+experts.
 """
 from __future__ import annotations
 
@@ -26,6 +37,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.distributed.comm import copy_to_model, part, reduce_from_model
 from repro_torch.models.layers import activate, param
 
 
@@ -80,6 +92,7 @@ def moe(
     capacity_factor: float = 1.25,
     group: int = 256,
     batch_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [B, S, D], aux load-balancing loss scalar). The aux
     loss's token means go through ``batch_mean`` when it is given (the mean
@@ -101,12 +114,15 @@ def moe(
 
     oh, pos_tok = capacity_positions(idx, E)
     keep = pos_tok < cap
-    # dispatch/combine tensors [G, g, E, cap]
+    # dispatch/combine tensors [G, g, E/model, cap] over this rank's experts
+    e0, el = part(tp, E)
+    oh_l = oh[..., e0:e0 + el]
     pos_oh = one_hot(pos_tok, cap)                                   # [G, g, k, cap]
-    disp = torch.einsum("gske,gskc->gsec", oh * keep[..., None], pos_oh)
-    comb = torch.einsum("gske,gskc,gsk->gsec", oh, pos_oh, w * keep)
+    disp = torch.einsum("gske,gskc->gsec", oh_l * keep[..., None], pos_oh)
+    comb = torch.einsum("gske,gskc,gsk->gsec", oh_l, pos_oh, copy_to_model(w * keep, tp))
 
-    xin = torch.einsum("gsec,gsd->gecd", disp.to(x.dtype), xt)       # [G, E, cap, D]
+    xe = copy_to_model(xt, tp)
+    xin = torch.einsum("gsec,gsd->gecd", disp.to(x.dtype), xe)       # [G, E/model, cap, D]
     h = torch.einsum("gecd,edf->gecf", xin, p.e_in)
     e_gate = getattr(p, "e_gate", None)
     gate_in = torch.einsum("gecd,edf->gecf", xin, e_gate) if e_gate is not None else None
@@ -115,10 +131,11 @@ def moe(
     out = torch.einsum("gsec,gecd->gsd", comb.to(x.dtype), eout)
 
     if getattr(p, "s_in", None) is not None:  # shared experts, always-on dense path
-        hs = xt @ p.s_in
+        hs = xe @ p.s_in
         s_gate = getattr(p, "s_gate", None)
-        gs = xt @ s_gate if s_gate is not None else None
+        gs = xe @ s_gate if s_gate is not None else None
         out = out + activate(hs, mlp_type, gs) @ p.s_out
+    out = reduce_from_model(out, tp)
 
     # Switch-style load-balancing auxiliary loss
     me = probs.mean(dim=(0, 1))                                      # mean router prob

@@ -10,6 +10,13 @@ products differently, so they agree to float rounding (the tolerance the
 reference holds its own SSD path to). ``mamba2_ssd`` is the chunked quadratic
 form. Decode is the exact one-token recurrence on the carried state. The
 depthwise causal conv and the scan run in f32.
+
+The blocks take no ``tp``: under tensor parallelism their leaves are
+gathered whole (``distributed.fsdp.read_policy``) and every rank of the
+model group runs them alike. A column slice of Mamba1's concatenated
+``in_proj`` (``[x, z]``) or Mamba2's (``z, x, B, C, dt``) would not give a
+rank matching channels, and Mamba2's gated norm runs over all of
+``d_inner``; their split over ``model`` is not ported.
 """
 from __future__ import annotations
 

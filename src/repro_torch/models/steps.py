@@ -22,6 +22,13 @@ prefill state into its first S positions (the SSM leaves whole). A position
 at or past the cache length raises ``ValueError`` (one host read of the
 positions a step): the reference drops such a write silently and decodes
 against a cache without the token.
+
+Each step takes ``tp`` (a ``distributed.comm.ModelGroup``; ``None`` in one
+process): logits are then this rank's rows of the vocabulary, the cross
+entropy combines the group's max, sum of exponentials and gold logit, and
+a decode state holds this rank's KV heads, or every KV head when they do
+not split over the group (``distributed.fsdp.make_sharded_serve_steps``
+keeps it under ``sharding.cache_specs``).
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
+from repro_torch.distributed.comm import max_over_model, reduce_from_model
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.kvcache import init_cache
@@ -50,18 +58,28 @@ from repro_torch.models.model import (
 # --- loss and the train step ---------------------------------------------------------
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE; logits [..., V] (computed in f32), labels [...] int."""
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, tp=None) -> torch.Tensor:
+    """Mean CE; logits [..., V] (computed in f32; with ``tp``, this rank's
+    rows [..., V/model] of a vocabulary split over the group), labels [...]
+    int. The log-sum-exp is ``torch.logsumexp``'s: the max (over the group),
+    then the log of the sum of exponentials (summed over the group) plus
+    it; the gold logit comes from the rank that holds its row."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - gold)
+    n = logits.shape[-1]
+    m = max_over_model(logits.amax(dim=-1), tp)
+    m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    sumexp = reduce_from_model(torch.sum(torch.exp(logits - m[..., None]), dim=-1), tp)
+    local = labels.long() - (0 if tp is None else tp.rank * n)
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = reduce_from_model(torch.where(inside, gold, torch.zeros_like(gold)), tp)
+    return torch.mean(torch.log(sumexp) + m - gold)
 
 
 def loss_fn(params, cfg: ModelConfig, tokens, labels, *, aux_weight: float = 0.01,
-            batch_mean=None) -> Tuple[torch.Tensor, Dict]:
-    logits, aux = forward(params, cfg, tokens, batch_mean=batch_mean)
-    loss = softmax_xent(logits, labels)
+            batch_mean=None, tp=None) -> Tuple[torch.Tensor, Dict]:
+    logits, aux = forward(params, cfg, tokens, batch_mean=batch_mean, tp=tp)
+    loss = softmax_xent(logits, labels, tp)
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux}
 
@@ -102,15 +120,17 @@ def _stack(states):
 
 
 @torch.no_grad()
-def prefill_step(params, cfg: ModelConfig, tokens, positions=None) -> Tuple[torch.Tensor, Dict]:
-    """Forward + decode-state population. Returns (last logits [B, V*], cache)."""
+def prefill_step(params, cfg: ModelConfig, tokens, positions=None, *, tp=None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Forward + decode-state population. Returns (last logits [B, V*], cache
+    of this rank's KV heads)."""
     positions = _positions(tokens, positions)
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, tp)
     dtype = dtype_of(cfg)
     G, P = cfg.layer_groups()
 
     def attn_with_cache(p, h, window):
-        h, _, (k, v) = _attn_block_kv(cfg, p, h, positions, window)
+        h, _, (k, v) = _attn_block_kv(cfg, p, h, positions, window, tp=tp)
         return h, {"k": k.to(dtype), "v": v.to(dtype)}
 
     if cfg.family == "ssm":
@@ -147,7 +167,7 @@ def prefill_step(params, cfg: ModelConfig, tokens, positions=None) -> Tuple[torc
         cache = {"kv": _stack(kvs)}
 
     x_last = rmsnorm(params.final_norm, x[:, -1:], cfg.norm_eps)
-    return _logits(params, cfg, x_last)[:, 0], cache
+    return _logits(params, cfg, x_last, tp)[:, 0], cache
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, s_max: int, *, ring_local: bool = False,
@@ -173,22 +193,23 @@ def _check_positions(cache: Dict, pos: torch.Tensor) -> None:
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos) -> Tuple[torch.Tensor, Dict]:
+def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *, tp=None
+                ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode. tokens: [B, 1] (or [B, 1, K]); pos: [B] int.
 
     Returns (logits [B, V*] f32, the cache, updated in place)."""
     B = tokens.shape[0]
     pos = torch.as_tensor(pos, device=tokens.device).long()
     _check_positions(cache, pos)
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, tp)
     G, P = cfg.layer_groups()
-    kw = _attn_kw(cfg)
+    kw = dict(_attn_kw(cfg), tp=tp)
 
     def attn_dec(p, h, k_cache, v_cache, window):
         out, _ = attn_lib.decode_attention(p.attn, rmsnorm(p.attn_norm, h, cfg.norm_eps), pos,
                                            k_cache, v_cache, window=window, **kw)
         h = h + out
-        out2, _ = _ffn(cfg, p, rmsnorm(p.mlp_norm, h, cfg.norm_eps), min(cfg.moe_group, B))
+        out2, _ = _ffn(cfg, p, rmsnorm(p.mlp_norm, h, cfg.norm_eps), min(cfg.moe_group, B), tp=tp)
         return h + out2
 
     def ssm_dec(p, h, conv, hstate):
@@ -222,7 +243,7 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos) -> Tuple[tor
                     lp.attn, rmsnorm(lp.attn_norm, x, cfg.norm_eps), pos,
                     kvl["k"][g, i], kvl["v"][g, i], kvl["pos"][g, i], **kw)
                 x = x + out
-                x = x + mlp(lp.mlp, rmsnorm(lp.mlp_norm, x, cfg.norm_eps), cfg.mlp_type)
+                x = x + mlp(lp.mlp, rmsnorm(lp.mlp_norm, x, cfg.norm_eps), cfg.mlp_type, tp)
             x = attn_dec(group[P - 1], x, kvg["k"][g], kvg["v"][g], None)
     elif cfg.attn_pattern == "local_global":
         kv = cache["kv"]
@@ -236,4 +257,4 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos) -> Tuple[tor
             x = attn_dec(lp, x, kv["k"][i], kv["v"][i], None)
 
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return _logits(params, cfg, x)[:, 0], cache
+    return _logits(params, cfg, x, tp)[:, 0], cache

@@ -10,6 +10,11 @@
   ``model_flops_total`` equal to the numbers computed from the JAX
   package's ``init_params_shapes``; ``report`` tabulates the records and
   ``inspect_cell`` prints its breakdown;
+* a chip counts only its share of the ``model`` axis' work: llama3.2-1b's
+  ``train_4k`` FLOPs a chip times the chips lie between 1.0 and 1.6 x
+  ``model_flops_total`` (attention and the "dots" recompute above it), and
+  ``decode_32k``'s within 10 % of 8.66e11 (2 N and the attention over the
+  32k cache, a token);
 * the udg-serve record is ``ok`` for f32 and int8 (int8 moves fewer bytes),
   and its terms are the kernel table's bound model (``kernels/bounds.py``)
   at its upper end, at the FP32 and compare rates;
@@ -32,7 +37,8 @@ from repro.models import init_params_shapes as ref_init_params_shapes
 from repro_torch.launch import dryrun, hlo, report, roofline
 
 REPO = Path(__file__).resolve().parents[1]
-CELLS = (("llama3.2-1b", "decode_32k"), ("moonshot-v1-16b-a3b", "decode_32k"))
+CELLS = (("llama3.2-1b", "decode_32k"), ("moonshot-v1-16b-a3b", "decode_32k"),
+         ("llama3.2-1b", "train_4k"))
 SCRIPT = """
 import sys
 from repro_torch.launch import dryrun, inspect_cell
@@ -80,11 +86,21 @@ def test_counts_equal_the_references(records, cell):
     cfg = ref_get_config(arch)
     n = sum(int(np.prod(l.shape)) for l in jax.tree_util.tree_leaves(ref_init_params_shapes(cfg)))
     active = ref_active_params(cfg, n)
-    tokens = SHAPES[shape].global_batch
+    sh = SHAPES[shape]
+    tokens = sh.global_batch * (1 if sh.kind == "decode" else sh.seq_len)
     assert (r["n_params"], r["n_active_params"], r["tokens_per_step"]) == (n, active, tokens)
-    assert r["roofline"]["model_flops_total"] == 2.0 * active * tokens
+    assert r["roofline"]["model_flops_total"] == (6.0 if sh.kind == "train" else 2.0) * active * tokens
     if cfg.is_moe:
         assert active < n
+
+
+def test_each_chip_counts_its_share_of_the_model_axis(records):
+    _, recs, _ = records
+    train, decode = recs[("llama3.2-1b", "train_4k")], recs[("llama3.2-1b", "decode_32k")]
+    assert train["ok"] and decode["ok"], (train.get("error"), decode.get("error"))
+    rf = train["roofline"]
+    assert 1.0 <= rf["flops_per_chip"] * train["chips"] / rf["model_flops_total"] <= 1.6
+    assert decode["roofline"]["flops_per_chip"] * decode["chips"] == pytest.approx(8.66e11, rel=0.1)
 
 
 def test_report_and_inspect_cell(records):

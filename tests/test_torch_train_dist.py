@@ -17,13 +17,23 @@ Held:
 * the twin of ``test_elastic_restart_downscale`` from 4 ranks to 2: 30
   steps, one restart, the final ``w`` within 1e-6 of the reference
   runner's, ranks 2 and 3 left out;
-* ``make_sharded_train_step`` at data 2 x model 2 and pod 2 x data 2 on the
-  f32 SMOKE llama3.2-1b, moonshot and falcon-mamba, 3 steps from the
-  reference's parameters: loss, grad norm and the gathered parameters
-  within 1e-5 of the one-process ``make_train_step`` and of the
+* ``make_sharded_train_step`` at data 2 x model 2, pod 2 x data 2 and
+  data 1 x model 4 (fewer KV heads than ranks on llama, two experts a rank
+  on moonshot) on the f32 SMOKE llama3.2-1b, moonshot and falcon-mamba, 3
+  steps from the reference's parameters: loss, grad norm and the gathered
+  parameters within 1e-5 of the one-process ``make_train_step`` and of the
   reference's ``make_train_step`` jitted with ``in_shardings`` on the same
   mesh shape; each rank's slices hold the leaf's bytes over its spec's
-  slices;
+  slices; the ranks' FLOPs in one step (``FlopCounterMode``) add up, within
+  5 %, to the one-process step's plus the work repeated on purpose (the
+  router's product on every rank of the model group, and the projection of
+  a KV head two ranks share), so a rank computes only its share;
+* ``make_sharded_serve_steps`` at data 2 x model 2 and data 1 x model 4:
+  the prefill's and four decode steps' logits, gathered, within 1e-5 of
+  the one-process ``prefill_step`` / ``decode_step`` and of the
+  reference's ``prefill_step`` / ``decode_step`` jitted with
+  ``in_shardings`` (``param_specs``, ``cache_specs``) on the same mesh
+  shape, from the same parameters;
 * the launcher at 4 ranks (data 2 x model 2) gives the one-process
   launcher's losses within 1e-5 in f32 (bf16 gradients meaned over two
   ranks round differently from one backward over the whole batch), and
@@ -42,15 +52,18 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 import torch_train_dist_worker as case
 from repro import configs as ref_configs
 from repro import models as ref_models
 from repro_torch import models as tm
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.comm import ModelGroup
 from repro_torch.distributed.sharding import P, local_shard, to_placements
 from repro_torch.launch import train as launcher
 from repro_torch.launch.mesh import MeshSpec
+from repro_torch.models.attention import head_split
 from repro_torch.train import adamw
 from torch_cases import K  # noqa: F401  (pins torch to one thread)
 
@@ -175,8 +188,8 @@ def test_elastic_restart_downscale(runs):
 
 @pytest.fixture(scope="module")
 def one_process(fsdp_init):
-    """arch -> (metrics [steps, 2], parameters) of the one-process step,
-    from the reference's parameters."""
+    """arch -> (metrics [steps, 2], parameters, the first step's FLOPs) of
+    the one-process step, from the reference's parameters."""
     out = {}
     for arch in case.FSDP_ARCHS:
         cfg = case.f32_smoke(arch)
@@ -184,10 +197,14 @@ def one_process(fsdp_init):
         opt = adamw(lr=case.FSDP_LR)
         state, step = opt.init(model), tm.make_train_step(cfg, opt)
         metrics = []
-        for batch in case.fsdp_batches(cfg):
-            m = step(model, state, batch)[2]
+        for i, batch in enumerate(case.fsdp_batches(cfg)):
+            with FlopCounterMode(display=False) as fc:
+                m = step(model, state, batch)[2]
+            if i == 0:
+                flops = fc.get_total_flops()
             metrics.append([float(m["loss"]), float(m["grad_norm"])])
-        out[arch] = (np.array(metrics), {n: p.detach().numpy() for n, p in model.named_parameters()})
+        out[arch] = (np.array(metrics), {n: p.detach().numpy() for n, p in model.named_parameters()},
+                     flops)
     return out
 
 
@@ -196,7 +213,7 @@ def one_process(fsdp_init):
 def test_sharded_step_matches_the_one_process_step(runs, one_process, arch, layout):
     _, ranks = runs
     key = f"fsdp/{arch}/{layout}"
-    want_m, want_p = one_process[arch]
+    want_m, want_p, _ = one_process[arch]
     for r, got in enumerate(ranks):
         np.testing.assert_allclose(got[f"{key}/metrics"], want_m, rtol=1e-5, atol=1e-5,
                                    err_msg=f"rank {r} loss / grad norm")
@@ -231,6 +248,77 @@ def test_each_rank_holds_its_slice_bytes(runs, arch, layout):
     for r, got in enumerate(ranks):
         np.testing.assert_array_equal(got[f"{key}/shard_bytes"], got[f"{key}/whole_over_slices"],
                                       err_msg=f"rank {r}")
+
+
+def repeated_flops(cfg, model: int) -> float:
+    """The FLOPs of one step that a model group of ``model`` ranks repeats on
+    purpose, beyond the one-process step's: every rank runs the router's
+    product on the same tokens (its forward and both backward products), and
+    each rank projects the KV heads its query heads read, so a KV head two
+    ranks share is projected twice (``wk`` and ``wv``, forward and
+    backward)."""
+    T, D, L = case.FSDP_BATCH * case.FSDP_SEQ, cfg.d_model, cfg.num_layers
+    router = 3 * 2 * T * D * cfg.num_experts * L if cfg.is_moe else 0
+    projected = sum(head_split(cfg.num_heads, cfg.num_kv_heads, ModelGroup(None, model, r))[3]
+                    for r in range(model))
+    shared = 2 * 3 * 2 * T * D * cfg.head_dim * L * (projected - cfg.num_kv_heads)
+    return (model - 1) * router + shared
+
+
+@pytest.mark.parametrize("layout", list(case.FSDP_LAYOUTS))
+@pytest.mark.parametrize("arch", ("llama3.2-1b", "moonshot-v1-16b-a3b"))
+def test_each_rank_computes_only_its_share(runs, one_process, arch, layout):
+    """The ranks' FLOPs in one sharded step add up to the one-process
+    step's plus only the work the design repeats on purpose."""
+    _, ranks = runs
+    got = sum(float(r[f"fsdp/{arch}/{layout}/flops"]) for r in ranks)
+    model = case.FSDP_LAYOUTS[layout]["model"]
+    want = one_process[arch][2] + repeated_flops(case.f32_smoke(arch), model)
+    assert got == pytest.approx(want, rel=0.05), (got, one_process[arch][2], want)
+    if model > 1:
+        assert got < one_process[arch][2] * 1.25     # nothing like a whole step a rank
+
+
+@pytest.fixture(scope="module")
+def one_process_serve(fsdp_init):
+    """arch -> the one-process prefill's and decode steps' logits,
+    [1 + SERVE_NEW, B, (K,) V]."""
+    out = {}
+    S, B = case.SERVE_PROMPT, case.SERVE_BATCH
+    for arch in case.FSDP_ARCHS:
+        cfg = case.f32_smoke(arch)
+        model = _port_model(arch, fsdp_init[arch])
+        toks = torch.as_tensor(case.serve_tokens(cfg))
+        logits, cache = tm.prefill_step(model, cfg, toks[:, :S])
+        state = tm.init_decode_state(cfg, B, S + case.SERVE_NEW, device="cpu")
+        case.copy_prefix(state, cache, S)
+        steps = [logits.numpy()]
+        for i in range(case.SERVE_NEW):
+            logits, state = tm.decode_step(model, cfg, state, toks[:, S + i:S + i + 1],
+                                           torch.full((B,), S + i))
+            steps.append(logits.numpy())
+        out[arch] = np.stack(steps)
+    return out
+
+
+@pytest.mark.parametrize("layout", case.SERVE_LAYOUTS)
+@pytest.mark.parametrize("arch", case.FSDP_ARCHS)
+def test_sharded_prefill_and_decode_match_the_one_process_steps(runs, one_process_serve, arch,
+                                                                layout):
+    _, ranks = runs
+    np.testing.assert_allclose(ranks[0][f"serve/{arch}/{layout}"], one_process_serve[arch],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", case.SERVE_LAYOUTS)
+@pytest.mark.parametrize("arch", case.FSDP_ARCHS)
+def test_sharded_prefill_and_decode_match_the_references_sharded_steps(runs, arch, layout):
+    """Against the reference's ``prefill_step`` / ``decode_step`` jitted
+    with ``in_shardings`` on the same mesh shape (its dry-run's lowering),
+    from the same parameters and tokens."""
+    want, ranks = runs
+    key = f"serve/{arch}/{layout}"
+    np.testing.assert_allclose(ranks[0][key], want[key], rtol=1e-5, atol=1e-5)
 
 
 # --- the launcher ----------------------------------------------------------------------------

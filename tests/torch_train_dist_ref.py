@@ -20,9 +20,15 @@ Writes, from numpy seeds shared with ``torch_train_dist_worker.py``:
   grad norm and final parameters of ``make_train_step`` jitted with
   ``in_shardings`` from ``param_specs`` / ``opt_state_specs`` /
   ``batch_spec`` (GSPMD, as ``launch/train.py`` runs it) on a (data 2,
-  model 2) and a (pod 2, data 2, model 1) mesh of four devices,
+  model 2), a (pod 2, data 2, model 1) and a (data 1, model 4) mesh of
+  four devices,
   ``FSDP_STEPS`` steps of the f32 SMOKE config from ``init_params(cfg,
-  PRNGKey(0))``.
+  PRNGKey(0))``;
+* ``serve/<arch>/<layout>``: the logits of ``prefill_step`` and
+  ``SERVE_NEW`` ``decode_step``s jitted with ``in_shardings`` from
+  ``param_specs`` / ``cache_specs`` / ``batch_spec`` (as the reference's
+  dry-run lowers them) on the meshes of ``SERVE_LAYOUTS``, from the same
+  parameters over ``serve_tokens``, [1 + SERVE_NEW, B, (K,) V].
 """
 import dataclasses
 import sys
@@ -37,8 +43,10 @@ from repro.configs import get_config
 from repro.distributed.compat import shard_map
 from repro.distributed.compression import compressed_psum
 from repro.distributed.elastic import ElasticRunner
-from repro.distributed.sharding import batch_spec, opt_state_specs, param_specs
-from repro.models import init_params, make_train_step
+from repro.distributed.sharding import (batch_spec, cache_specs, logits_spec, opt_state_specs,
+                                       param_specs)
+from repro.models import (decode_step, init_decode_state, init_params, make_train_step,
+                          prefill_step)
 from repro.train import CheckpointManager, adamw
 from repro.train.dp_trainer import make_dp_train_step
 
@@ -117,9 +125,13 @@ def elastic(out):
     out["elastic/w"] = np.asarray(state["params"]["w"])
 
 
+MESH_SHAPES = {"data2_model2": ((2, 2), ("data", "model")),
+               "pod2_data2": ((2, 2, 1), ("pod", "data", "model")),
+               "data1_model4": ((1, 4), ("data", "model"))}
+
+
 def fsdp(out):
-    shapes = {"data2_model2": ((2, 2), ("data", "model")),
-              "pod2_data2": ((2, 2, 1), ("pod", "data", "model"))}
+    shapes = MESH_SHAPES
     assert set(shapes) == set(case.FSDP_LAYOUTS)
     for arch in case.FSDP_ARCHS:
         cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
@@ -146,6 +158,56 @@ def fsdp(out):
                 out[f"{key}/param{jax.tree_util.keystr(path)}"] = np.asarray(leaf)
 
 
+def _copy_prefix(dst, src, n):
+    """``case.copy_prefix`` on the reference's trees, functionally."""
+    out = {}
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            out[k] = _copy_prefix(v, src[k], n)
+        elif k in ("k", "v"):
+            out[k] = v.at[..., :n, :, :].set(src[k])
+        else:
+            out[k] = src[k]
+    return out
+
+
+def serve(out):
+    S, B, new = case.SERVE_PROMPT, case.SERVE_BATCH, case.SERVE_NEW
+    for arch in case.FSDP_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        params = init_params(cfg, jax.random.PRNGKey(0))
+        toks = jnp.asarray(case.serve_tokens(cfg).astype(np.int32))
+        vshape = (B,) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()) + (cfg.vocab_size,)
+        for layout in case.SERVE_LAYOUTS:
+            shape, names = MESH_SHAPES[layout]
+            mesh = Mesh(np.array(jax.devices()[:case.WORLD]).reshape(shape), names)
+            ns = lambda t: jax.tree_util.tree_map(lambda sp: NamedSharding(mesh, sp), t)
+            pspecs = param_specs(params, cfg, mesh)
+            lspec = NamedSharding(mesh, logits_spec(mesh, vshape))
+            prompt = toks[:, :S]
+            pspec_c = cache_specs(jax.eval_shape(lambda: init_decode_state(cfg, B, S)), cfg, mesh)
+            prefill = jax.jit(lambda p, t: prefill_step(p, cfg, t),
+                              in_shardings=(ns(pspecs), NamedSharding(mesh, batch_spec(mesh, prompt.shape))),
+                              out_shardings=(lspec, ns(pspec_c)))
+            p = jax.device_put(params, ns(pspecs))
+            logits, cache = prefill(p, prompt)
+            state = _copy_prefix(init_decode_state(cfg, B, S + new), cache, S)
+            dspecs = cache_specs(state, cfg, mesh)
+            tok1 = toks[:, S:S + 1]
+            decode = jax.jit(lambda p, c, t, q: decode_step(p, cfg, c, t, q),
+                             in_shardings=(ns(pspecs), ns(dspecs),
+                                           NamedSharding(mesh, batch_spec(mesh, tok1.shape)),
+                                           NamedSharding(mesh, batch_spec(mesh, (B,)))),
+                             out_shardings=(lspec, ns(dspecs)))
+            state = jax.device_put(state, ns(dspecs))
+            steps = [np.asarray(logits)]
+            for i in range(new):
+                logits, state = decode(p, state, toks[:, S + i:S + i + 1],
+                                       jnp.full((B,), S + i, jnp.int32))
+                steps.append(np.asarray(logits))
+            out[f"serve/{arch}/{layout}"] = np.stack(steps)
+
+
 def main(path):
     out = {}
     shard_maps(out)
@@ -153,6 +215,7 @@ def main(path):
     dp(out)
     elastic(out)
     fsdp(out)
+    serve(out)
     np.savez(path, **out)
 
 

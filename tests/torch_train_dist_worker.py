@@ -16,7 +16,13 @@ group through a file store in ``WORKDIR``. Each rank, in turn:
   ``FSDP_ARCHS`` at each of ``FSDP_LAYOUTS`` from
   ``WORKDIR/fsdp_init_<arch>.npz`` (the reference's parameters, carried
   across by the test), with this rank's slice bytes beside the leaf's
-  bytes over its spec's slices, and the gathered parameters;
+  bytes over its spec's slices, the gathered parameters, and this rank's
+  FLOPs in the first step (``FlopCounterMode``);
+* ``make_sharded_serve_steps`` at each of ``SERVE_LAYOUTS``: the prefill
+  of ``serve_tokens``' first ``SERVE_PROMPT`` positions and
+  ``SERVE_NEW`` decode steps on a state sized for prompt + new tokens
+  (the prefill's cache gathered, copied into its first positions and
+  sliced again), each step's logits gathered whole;
 * ``launch.train.main`` with ``WORLD_SIZE`` set, data 2 x model 2, its
   ``get_config`` giving the f32 SMOKE config (rank 0 keeps its step-4
   checkpoint's arrays).
@@ -25,6 +31,7 @@ Writes ``rank{r}.npz`` into ``WORKDIR``. The constants and input makers are
 shared with ``torch_train_dist_ref.py`` (the JAX package's side) and the
 test.
 """
+import contextlib
 import dataclasses
 import os
 import sys
@@ -43,8 +50,13 @@ SHARD_CASES = (
 DP_STEPS, DP_LR = 8, 1e-3
 FAIL_AT = 17
 FSDP_ARCHS = ("llama3.2-1b", "moonshot-v1-16b-a3b", "falcon-mamba-7b")
-FSDP_LAYOUTS = {"data2_model2": dict(model=2, pod=1), "pod2_data2": dict(model=1, pod=2)}
+FSDP_LAYOUTS = {"data2_model2": dict(model=2, pod=1), "pod2_data2": dict(model=1, pod=2),
+                "data1_model4": dict(model=4, pod=1)}
 FSDP_STEPS, FSDP_LR, FSDP_BATCH, FSDP_SEQ = 3, 3e-4, 8, 32
+# the sharded prefill + decode; 64 rows a data rank fill whole MoE groups (moonshot's
+# SMOKE ``moe_group``), as the one-process step groups them
+SERVE_LAYOUTS = ("data2_model2", "data1_model4")
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 128, 16, 4
 LAUNCH = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--steps", "4", "--batch", "4",
           "--seq", "16", "--ckpt-every", "2"]
 
@@ -80,6 +92,26 @@ def fsdp_batches(cfg):
         tokens = rng.integers(0, cfg.vocab_size, (FSDP_BATCH, FSDP_SEQ)).astype(np.int32)
         out.append({"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)})
     return out
+
+
+def serve_tokens(cfg):
+    """[SERVE_BATCH, SERVE_PROMPT + SERVE_NEW] (, K) token ids."""
+    rng = np.random.default_rng(13)
+    shape = (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW) + (
+        (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ())
+    return rng.integers(0, cfg.vocab_size, shape).astype(np.int64)
+
+
+def copy_prefix(dst, src, n):
+    """A prefill state ``src`` into the first ``n`` positions of a decode
+    state ``dst`` (the SSM leaves whole)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            copy_prefix(dst[k], v, n)
+        elif k in ("k", "v"):
+            dst[k][..., :n, :, :].copy_(v)
+        else:
+            dst[k].copy_(v)
 
 
 def f32_smoke(arch):
@@ -186,6 +218,8 @@ def elastic_part(rank, workdir, out):
 
 
 def fsdp_part(rank, workdir, out):
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.distributed import make_train_mesh
     from repro_torch.distributed.fsdp import make_sharded_train_step
     from repro_torch.distributed.sharding import opt_state_specs, spec_size
@@ -210,14 +244,50 @@ def fsdp_part(rank, workdir, out):
             out[f"{key}/shard_bytes"] = np.array(got)
             out[f"{key}/whole_over_slices"] = np.array(want)
             metrics = []
-            for batch in fsdp_batches(cfg):
-                state, m = step(state, batch)
+            for i, batch in enumerate(fsdp_batches(cfg)):
+                with FlopCounterMode(display=False) if i == 0 else contextlib.nullcontext() as fc:
+                    state, m = step(state, batch)
+                if i == 0:
+                    out[f"{key}/flops"] = np.array(fc.get_total_flops(), np.float64)
                 metrics.append([float(m["loss"]), float(m["grad_norm"])])
             out[f"{key}/metrics"] = np.array(metrics)
             params, _ = step.unshard(state)
             if rank == 0:
                 for n, t in params.items():
                     out[f"{key}/param/{n}"] = t.numpy()
+
+
+def serve_part(rank, workdir, out):
+    import torch
+    from repro_torch.distributed import fsdp, make_train_mesh
+    from repro_torch.distributed.sharding import logits_spec, param_specs
+    from repro_torch.models import init_decode_state
+
+    S, B = SERVE_PROMPT, SERVE_BATCH
+    for arch in FSDP_ARCHS:
+        cfg = f32_smoke(arch)
+        model = load_model(cfg, os.path.join(workdir, f"fsdp_init_{arch}.npz"))
+        toks = serve_tokens(cfg)
+        for layout in SERVE_LAYOUTS:
+            mesh = make_train_mesh(device="cpu", **FSDP_LAYOUTS[layout])
+            named = dict(model.named_parameters())
+            shards = fsdp.shard_tree(named, param_specs(named, cfg, mesh), mesh)
+            prefill, decode = fsdp.make_sharded_serve_steps(cfg, mesh)
+            prompt_specs = fsdp.state_specs(cfg, mesh, B, S)
+            logits, cache = prefill(shards, toks[:, :S], prompt_specs)
+            state = init_decode_state(cfg, B, S + SERVE_NEW, device="cpu")
+            copy_prefix(state, fsdp.gather_cache(cache, prompt_specs, mesh), S)
+            specs = fsdp.state_specs(cfg, mesh, B, S + SERVE_NEW)
+            state = fsdp.shard_cache(state, specs, mesh)
+            steps = [logits]
+            for i in range(SERVE_NEW):
+                logits, state = decode(shards, state, specs, toks[:, S + i:S + i + 1],
+                                       torch.full((B,), S + i))
+                steps.append(logits)
+            whole = [fsdp.gather(t, logits_spec(mesh, (B,) + tuple(t.shape[1:-1])
+                                                + (cfg.vocab_size,)), mesh).numpy() for t in steps]
+            if rank == 0:
+                out[f"serve/{arch}/{layout}"] = np.stack(whole)
 
 
 def launcher_part(rank, workdir, out):
@@ -246,6 +316,7 @@ def rank_main(rank, workdir):
         dp_part(rank, workdir, out)
         elastic_part(rank, workdir, out)
         fsdp_part(rank, workdir, out)
+        serve_part(rank, workdir, out)
         launcher_part(rank, workdir, out)
         np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
     finally:
