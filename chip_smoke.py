@@ -150,7 +150,14 @@ kernel launch counts to 0 just before it and reads them just after:
     (loss and grad norm within 1e-4), each rank's ms, peak bytes, FLOPs
     and ``tp`` all-reduce bytes and calls a step, and which collectives
     and dtypes gloo takes on CUDA tensors (its collectives stage through
-    the host: the times say nothing about NVLink); ``make_dp_train_step`` for 8
+    the host: the times say nothing about NVLink); in the same two
+    processes falcon-mamba-7b (1 layer) and zamba2-2.7b (one superblock)
+    at full width in f32, their Mamba blocks split over the two ranks: a
+    sharded prefill and 2 decode steps, then 2 steps, against the
+    one-process f32 run (logits, losses and the first grad norm within
+    1e-4, the second grad norm 1e-3; each rank's FLOPs half the
+    one-process step's plus Mamba2's B and C columns, within 5 %),
+    each Mamba leaf's read and the ``tp`` collectives printed; ``make_dp_train_step`` for 8
     steps plain and 8 with int8 compression over phase 17's batch: both
     losses fall, the last ones within the reference test's bound; the
     ``ElasticRunner`` toy recovering from a failure at step 17 bit-equal to
@@ -3559,12 +3566,18 @@ def train_phase(out: Path) -> dict:
 DIST_STEPS = 3                # phase 18: sharded steps held against the one-process step
 DIST_REL_TOL = 1e-6           # their loss and grad norm, deterministic algorithms on
 DIST_SMOKE_TOL = 1e-4         # a SMOKE sharded step on the card against the CPU, f32
-DIST_BUDGET_S = 75.0          # the phase's share of the run's time limit (reported)
+DIST_BUDGET_S = 100.0         # the phase's share of the run's time limit (reported)
 ELASTIC_FAIL_AT = 17
 TP_RANKS, TP_STEPS = 2, 2     # phase 18's two processes on one card (gloo over CUDA tensors)
 TP_LAYERS = 1                 # their depth (of 16): gloo stages every collective through the host
 TP_REL_TOL = 1e-4             # their f32 loss and grad norm against the one-process f32 step
 TP_TIMEOUT_S = 240            # the two processes' wall-clock limit, and the gloo group's
+TP_SSM = {"falcon-mamba-7b": 1, "zamba2-2.7b": 6}   # their SSM runs: layers (one superblock)
+TP_SSM_BATCH, TP_SSM_SEQ, TP_SSM_NEW = 2, 128, 2    # batch, sequence and decoded tokens
+TP_SSM_CHUNK = 64             # their scan's chunk: the sequence's two chunks carry the state
+TP_SSM_LOGIT_TOL = 1e-4       # their f32 logits against the one-process f32 run (atol = rtol)
+TP_SSM_GNORM_TOL = 3e-4       # their grad norm after the first AdamW step (relative; PERF.md 6)
+TP_FLOPS_REL_TOL = 0.05       # a rank's FLOPs against the one-process step's share
 
 
 def dist_smoke_card_vs_cpu(arch: str, mesh_gpu, mesh_cpu) -> float:
@@ -3680,6 +3693,145 @@ def tp_config():
     return dataclasses.replace(get_lm_config(LM_ARCH), num_layers=TP_LAYERS)
 
 
+def tp_ssm_config(arch: str):
+    """``arch`` at full width, ``TP_SSM[arch]`` layers deep, its scan chunked
+    by ``TP_SSM_CHUNK`` (bf16, as ``CONFIG``; the runs widen it to f32)."""
+    return dataclasses.replace(get_lm_config(arch), num_layers=TP_SSM[arch],
+                               ssm_chunk=TP_SSM_CHUNK)
+
+
+def tp_ssm_inputs(cfg) -> tuple:
+    """(the train batch, the serving tokens [B, S + new]) of an SSM run."""
+    from repro_torch.launch.train import synthetic_batch
+
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab_size, (TP_SSM_BATCH, TP_SSM_SEQ + TP_SSM_NEW))
+    return synthetic_batch(np.random.default_rng(1), cfg, TP_SSM_BATCH, TP_SSM_SEQ), toks
+
+
+def tp_ssm_repeated_flops(cfg) -> float:
+    """The FLOPs of one train step that every rank of the model group
+    computes whole: Mamba2's B and C columns of ``in_proj`` (forward and
+    both backward products)."""
+    if cfg.ssm_kind != "mamba2":
+        return 0.0
+    G, P = cfg.layer_groups()
+    return 3 * 2 * TP_SSM_BATCH * TP_SSM_SEQ * cfg.d_model * 2 * cfg.ssm_state * G * (P - 1)
+
+
+def tp_ssm_one_process(arch: str) -> dict:
+    """A prefill of ``TP_SSM_SEQ`` tokens and ``TP_SSM_NEW`` decode steps
+    of ``tp_ssm_config(arch)`` in f32 on ``f32_model``'s weights, then
+    ``TP_STEPS`` one-process train steps (the first counted): the logits
+    (on the host), metrics, FLOPs and peak bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = tp_ssm_config(arch)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    batch, toks = tp_ssm_inputs(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = f32_model(cfg)
+    S, B, new = TP_SSM_SEQ, TP_SSM_BATCH, TP_SSM_NEW
+    t = torch.as_tensor(toks, device="cuda")
+    logits, cache = lm.prefill_step(model, c32, t[:, :S])
+    st = sized_state(c32, cache, B, S, new)
+    outs = [logits]
+    for i in range(new):
+        logits, st = lm.decode_step(model, c32, st, t[:, S + i:S + i + 1],
+                                    torch.full((B,), S + i, device="cuda"))
+        outs.append(logits)
+    logits = torch.stack(outs).cpu()
+    del st, cache, outs
+    opt = tp_schedule()
+    state, ustep = opt.init(model), lm.make_train_step(c32, opt)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) if i == 0 else contextlib.nullcontext() as fc:
+            m = ustep(model, state, batch)[2]
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"].item(),
+                      "grad_norm": m["grad_norm"].item()})
+        if i == 0:
+            steps[0]["flops"] = float(fc.get_total_flops())
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, ustep, m
+    torch.cuda.empty_cache()
+    return {"steps": steps, "peak_device_bytes": peak, "logits": logits}
+
+
+def tp_ssm_rank(arch: str, mesh, work: str) -> dict:
+    """One rank's share of an SSM run: the sharded prefill and
+    ``TP_SSM_NEW`` decode steps of ``tp_ssm_config(arch)`` in f32 (rank 0
+    writes the gathered logits to ``tp_ssm_<arch>.pt`` in ``work``), then
+    ``TP_STEPS`` steps through the sharded train step (the first
+    counted)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.fsdp import (gather, gather_cache, make_sharded_serve_steps,
+                                              make_sharded_train_step, read_policy, shard_cache,
+                                              state_specs)
+    from repro_torch.distributed.sharding import leaf_name, logits_spec
+
+    cfg = tp_ssm_config(arch)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    batch, toks = tp_ssm_inputs(cfg)
+    shard_state, step = make_sharded_train_step(c32, tp_schedule(), mesh)
+    model = f32_model(cfg)
+    state = shard_state(model)
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec = {"reads": {leaf_name(n): read_policy(n, c32, mesh) for n in step.specs
+                     if ".mamba." in n},
+           "state_bytes": torch.cuda.memory_allocated()}
+    S, B, new = TP_SSM_SEQ, TP_SSM_BATCH, TP_SSM_NEW
+    prefill, decode = make_sharded_serve_steps(c32, mesh)
+    comm.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pspecs = state_specs(c32, mesh, B, S)
+    logits, cache = prefill(state["params"], toks[:, :S], pspecs)
+    st = sized_state(c32, gather_cache(cache, pspecs, mesh), B, S, new)
+    specs = state_specs(c32, mesh, B, S + new)
+    st = shard_cache(st, specs, mesh)
+    outs = [logits]
+    for i in range(new):
+        logits, st = decode(state["params"], st, specs, toks[:, S + i:S + i + 1],
+                            torch.full((B,), S + i))
+        outs.append(logits)
+    whole = torch.stack([gather(t, logits_spec(mesh, (B, c32.vocab_size)), mesh) for t in outs])
+    torch.cuda.synchronize()
+    rec["serve"] = {"ms": (time.perf_counter() - t0) * 1e3, "tp": comm.counts(tp=True),
+                    "collectives": comm.counts()}
+    if mesh.coord["model"] == 0:
+        torch.save(whole.cpu(), Path(work) / f"tp_ssm_{arch}.pt")
+    del st, cache, outs, whole
+    steps = []
+    for i in range(TP_STEPS):
+        comm.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) if i == 0 else contextlib.nullcontext() as fc:
+            _, m = step(state, batch)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"].item(),
+                      "grad_norm": m["grad_norm"].item(),
+                      "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                      "tp": comm.counts(tp=True), "collectives": comm.counts()})
+        if i == 0:
+            steps[0]["flops"] = float(fc.get_total_flops())
+    rec["steps"] = steps
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
 def tp_rank(rank: int, work: str) -> None:
     """One of phase 18's two processes on the one card: a gloo group over
     CUDA tensors at data 1 x model ``TP_RANKS``; ``TP_STEPS`` f32 steps of
@@ -3731,6 +3883,9 @@ def tp_rank(rank: int, work: str) -> None:
             if i == 0:
                 steps[0]["flops"] = float(fc.get_total_flops())
         rec["steps"] = steps
+        del state
+        torch.cuda.empty_cache()
+        rec["ssm"] = {arch: tp_ssm_rank(arch, mesh, work) for arch in TP_SSM}
         rec["ok"] = True
     except Exception as e:  # reported by the parent, which fails the phase
         import traceback
@@ -3774,6 +3929,7 @@ def tp_two_process(work: Path) -> dict:
     peak = torch.cuda.max_memory_allocated()
     del model, state, ustep, m
     torch.cuda.empty_cache()
+    ssm_one = {arch: tp_ssm_one_process(arch) for arch in TP_SSM}
 
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -3815,8 +3971,57 @@ def tp_two_process(work: Path) -> dict:
     rec["max_rel_err"] = worst
     rec["tol"] = TP_REL_TOL
     rec["rank_flops_over_one_process"] = [rk["steps"][0]["flops"] / one[0]["flops"] for rk in ranks]
+    rec["ssm"] = {arch: tp_ssm_check(arch, ssm_one[arch], [rk["ssm"][arch] for rk in ranks], work)
+                  for arch in TP_SSM}
     shutil.rmtree(work, ignore_errors=True)
     return rec
+
+
+def tp_ssm_check(arch: str, one: dict, ranks: list, work: Path) -> dict:
+    """An SSM run's gates: the gathered prefill and decode logits within
+    ``TP_SSM_LOGIT_TOL`` of the one-process run's on the same weights; each
+    rank's losses and first grad norm within ``TP_REL_TOL`` of the
+    one-process f32 steps', a later grad norm within ``TP_SSM_GNORM_TOL``
+    (AdamW's first step moves every weight by about the learning rate
+    whatever its gradient's size, so the rounding of near-zero gradient
+    entries reaches the next gradient: PERF.md section 6, PR 24); each
+    rank's FLOPs in the first step the one-process step's share (``1 /
+    TP_RANKS``) plus what every rank repeats (``tp_ssm_repeated_flops``),
+    within ``TP_FLOPS_REL_TOL``."""
+    cfg = tp_ssm_config(arch)
+    worst = 0.0
+    for r, rk in enumerate(ranks):
+        for i, (got, want) in enumerate(zip(rk["steps"], one["steps"])):
+            for key in ("loss", "grad_norm"):
+                rel = abs(got[key] - want[key]) / abs(want[key])
+                tol = TP_SSM_GNORM_TOL if key == "grad_norm" and i else TP_REL_TOL
+                worst = max(worst, rel)
+                require(math.isfinite(got[key]) and rel <= tol,
+                        f"{arch} rank {r}'s {key} {got[key]} at step {i} leaves the one-process "
+                        f"f32 step's {want[key]} by {rel} (tolerance {tol})")
+    got = torch.load(work / f"tp_ssm_{arch}.pt")
+    want = one["logits"]
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            f"{arch}: sharded logits {tuple(got.shape)} against {tuple(want.shape)}")
+    diff = (got - want).abs()
+    excess = (diff - TP_SSM_LOGIT_TOL - TP_SSM_LOGIT_TOL * want.abs()).max().item()
+    require(excess <= 0, f"{arch}: sharded prefill/decode logits leave the one-process run's "
+                         f"by {diff.max().item()}")
+    one_flops = one["steps"][0]["flops"]
+    rep = tp_ssm_repeated_flops(cfg)
+    share = (one_flops - rep) / TP_RANKS + rep
+    over = [rk["steps"][0]["flops"] / share for rk in ranks]
+    require(all(abs(o - 1.0) <= TP_FLOPS_REL_TOL for o in over),
+            f"{arch}: a rank's FLOPs over its share {over} (share {share}, one process "
+            f"{one_flops})")
+    return {"layers": cfg.num_layers, "batch": TP_SSM_BATCH, "seq": TP_SSM_SEQ,
+            "decode_steps": TP_SSM_NEW, "one_process": one["steps"],
+            "one_process_peak_device_bytes": one["peak_device_bytes"], "ranks": ranks,
+            "max_rel_err": worst, "later_grad_norm_tol": TP_SSM_GNORM_TOL,
+            "logits_max_abs_err": diff.max().item(), "logits_tol": TP_SSM_LOGIT_TOL,
+            "repeated_flops": rep,
+            "rank_flops_over_one_process": [rk["steps"][0]["flops"] / one_flops for rk in ranks],
+            "rank_flops_over_share": over}
 
 
 def distributed_phase(out: Path) -> dict:
@@ -3837,7 +4042,12 @@ def distributed_phase(out: Path) -> dict:
     2. two processes on the card in a gloo group over CUDA tensors
        (``tp_two_process``): data 1 x model 2, the same config in f32 at
        full width, ``TP_LAYERS`` deep, 2 steps within 1e-4 of 2 f32
-       one-process steps from the same weights;
+       one-process steps from the same weights; then in the same two
+       processes each of ``TP_SSM`` (falcon-mamba-7b 1 layer, zamba2-2.7b
+       one superblock) at full width in f32, their scans chunked by 64,
+       the Mamba blocks split over the ranks: the sharded prefill and 2
+       decode steps, then 2 steps, against the one-process f32 run
+       (``tp_ssm_check``);
        which collectives and dtypes gloo takes on CUDA tensors; each
        rank's ms, peak bytes, FLOPs and ``tp`` collectives a step;
     3. ``make_dp_train_step``, deterministic algorithms still on: 8 steps
@@ -4015,6 +4225,22 @@ def distributed_phase(out: Path) -> dict:
     emit({"reduced": {"tp_two_process_layers": [get_lm_config(LM_ARCH).num_layers, TP_LAYERS],
                       "why": "gloo stages every collective of the two processes through the "
                              "host; the run's time limit"}})
+    emit({"reduced": {"tp_two_process_ssm": {
+        arch: {"layers": [get_lm_config(arch).num_layers, n], "batch": TP_SSM_BATCH,
+               "seq": TP_SSM_SEQ, "decode_steps": TP_SSM_NEW,
+               "ssm_chunk": [get_lm_config(arch).ssm_chunk, TP_SSM_CHUNK]}
+        for arch, n in TP_SSM.items()},
+        "why": "two ranks share the one card and its 80 GB; the f32 one-process step keeps "
+               "the chunked scan's [B, chunk, d_inner, d_state] tensors of a whole "
+               "superblock; the run's time limit; the chunk cut so that the sequence "
+               "spans two"}})
+    emit({"tp_two_process_ssm": {arch: {
+        "reads": v["ranks"][0]["reads"], "tp_per_step": v["ranks"][0]["steps"][-1]["tp"],
+        "tp_serve": v["ranks"][0]["serve"]["tp"], "max_rel_err": v["max_rel_err"],
+        "logits_max_abs_err": v["logits_max_abs_err"],
+        "rank_flops_over_one_process": v["rank_flops_over_one_process"],
+        "peak_device_bytes": [rk["steps"][0]["peak_device_bytes"] for rk in v["ranks"]]}
+        for arch, v in rec["tp_two_process"]["ssm"].items()}})
     emit({"distributed": rec, "card": RECORD.get("card")})
     (out / "distributed.json").write_text(json.dumps(rec, indent=1))
     return launches

@@ -17,7 +17,9 @@ Tensor (and expert) parallelism over the mesh's ``model`` axis runs on
 two conjugate functions: ``copy_to_model`` (identity forward, all-reduce
 backward) where a replicated activation enters a rank's slice of a product,
 and ``reduce_from_model`` (all-reduce forward, identity backward) where the
-slices' partial results combine. Their collectives carry tags that start
+slices' partial results combine; ``sum_over_model`` (all-reduce both ways)
+combines partial results that every rank then reads again from its own
+slice (Mamba1's ``x_proj`` product). Their collectives carry tags that start
 with ``tp``; ``COUNTS`` keeps their bytes and calls a second time
 (``tp_bytes``, ``tp_calls``), so that the activation traffic they move reads
 apart from the weights' and gradients' (``counts(tp=True)``) without a log.
@@ -147,6 +149,17 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, tag):
+        ctx.tp, ctx.tag = tp, tag
+        return all_reduce(_copy(x), tp.group, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(_copy(g), ctx.tp.group, tag=ctx.tag), None, None
+
+
 def copy_to_model(x: torch.Tensor, tp: Optional[ModelGroup], tag: str = "tp.copy") -> torch.Tensor:
     """``x`` (the same on every rank of the group) entering this rank's slice
     of a product: the identity, whose backward sums the ranks' partial
@@ -164,6 +177,18 @@ def reduce_from_model(x: torch.Tensor, tp: Optional[ModelGroup],
         return x
     if torch.is_grad_enabled() and x.requires_grad:
         return _ReduceFromModel.apply(x, tp, tag)
+    return all_reduce(_copy(x), tp.group, tag=tag)
+
+
+def sum_over_model(x: torch.Tensor, tp: Optional[ModelGroup], tag: str = "tp.sum") -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` (one ``all_reduce``) where each
+    rank goes on to use the whole sum with its own slice of the next
+    product: each rank's gradient of the sum is then partial too, so the
+    backward sums it over the group as well (one more ``all_reduce``)."""
+    if tp is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumOverModel.apply(x, tp, tag)
     return all_reduce(_copy(x), tp.group, tag=tag)
 
 

@@ -16,18 +16,25 @@ prefill and decode steps beside it.
   on this rank's rows of the batch (``batch_spec``).
 * **Tensor and expert parallelism.** A leaf that a tensor- or
   expert-parallel product reads (``read_policy``: ``wq``/``wo``, the MLP's
-  and the shared experts' matrices, ``e_*``, ``table``/``heads``, and
-  ``wk``/``wv`` when the KV heads split over ``model``) is gathered over its
-  batch axes only and stays this rank's ``model`` slice: the layers run
-  their share of each product (Megatron's column- then row-parallel split,
-  experts over ranks, a vocabulary split over ranks) and combine it over
-  the model group (``comm.copy_to_model`` / ``reduce_from_model``, passed
-  as ``tp``). ``wk``/``wv`` whose KV heads do not split (fewer KV heads than
-  ranks) are gathered whole, and each rank keeps the heads its query heads
-  read; their gradient sums the ranks' parts. The Mamba blocks'
-  leaves are gathered whole and every rank of the group repeats their
-  compute: their ``d_inner`` split is not ported. Norms and the ``router``
-  are replicated over ``model``.
+  and the shared experts' matrices, ``e_*``, ``table``/``heads``, ``wk``/
+  ``wv`` when the KV heads split over ``model``, and the Mamba blocks'
+  row-parallel leaves) is gathered over its batch axes only and stays this
+  rank's ``model`` slice: the layers run their share of each product
+  (Megatron's column- then row-parallel split, experts over ranks, a
+  vocabulary split over ranks, Mamba1's ``d_inner`` channels and Mamba2's
+  heads) and combine it over the model group (``comm.copy_to_model`` /
+  ``reduce_from_model`` / ``sum_over_model``, passed as ``tp``). A leaf
+  read ``"parts"`` is gathered whole and each rank uses its part of it:
+  ``wk``/``wv`` whose KV heads do not split (fewer KV heads than ranks),
+  each rank keeping the heads its query heads read; the Mamba blocks'
+  ``in_proj`` (its spec's ``model`` slices of the concatenated [x, z] or
+  [z, x, B, C, dt] are not a rank's channels), Mamba2's ``conv_w``/
+  ``conv_b`` (likewise over [x, B, C]) and the per-channel or per-head
+  ``dt_bias``/``A_log``/``D``, which the specs replicate. Their gradient
+  sums the ranks' parts. A Mamba block whose channels or heads do not
+  divide over ``model`` (``models.model.ssm_splits``) reads its leaves
+  whole and every rank runs it. Norms and the ``router`` are replicated
+  over ``model``.
 * **Gradients.** ``_Gather``'s backward means the gradient of a read over
   the batch axes (``all_reduce``, in the gradient's dtype, then a divide,
   as ``pmean``; summed over ``model`` too for a whole ``wk``/``wv``) and
@@ -70,7 +77,8 @@ from repro_torch.distributed.sharding import (
     spec_size,
 )
 from repro_torch.models.attention import all_kv_heads
-from repro_torch.models.model import init_params_shapes
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.model import init_params_shapes, ssm_group, ssm_splits
 from repro_torch.models.steps import decode_step, init_decode_state, loss_fn, prefill_step
 from repro_torch.train.optimizer import AdamWState
 
@@ -104,16 +112,37 @@ _MODEL_SLICED = frozenset({"wq", "wo", "w_in", "w_gate", "w_out", "e_in", "e_gat
                            "s_in", "s_gate", "s_out", "table", "heads"})
 
 
+# how a split Mamba block reads its leaves (no other family has these names)
+_SSM_READS = {
+    "mamba1": {"in_proj": "parts", "conv_w": "slice", "conv_b": "slice", "x_proj": "slice",
+               "dt_proj": "slice", "dt_bias": "parts", "A_log": "parts", "D": "parts",
+               "out_proj": "slice"},
+    "mamba2": {"in_proj": "parts", "conv_w": "parts", "conv_b": "parts", "dt_bias": "parts",
+               "A_log": "parts", "D": "parts", "out_proj": "slice"},
+}
+
+
 def read_policy(name: str, cfg: ModelConfig, mesh) -> str:
     """How the layers read parameter ``name`` on ``mesh``: ``"slice"`` (this
     rank's ``model`` slice), ``"parts"`` (whole, each rank of the model group
     using its part: ``wk``/``wv`` whose KV heads do not split over
-    ``model``) or ``"whole"`` (whole, every rank of the model group
-    computing alike: the Mamba blocks, and leaves replicated over
-    ``model``)."""
+    ``model``, and a split Mamba block's ``in_proj``, Mamba2's conv and the
+    per-channel or per-head vectors) or ``"whole"`` (whole, every rank of
+    the model group computing alike: leaves replicated over ``model``).
+
+    A Mamba block splits when Mamba1's ``d_inner`` or Mamba2's head count
+    divides by the ``model`` extent (``ssm_splits``, a rule of the shapes);
+    when it does not, every leaf of the block is read ``"whole"``. Mamba1's
+    ``conv_w``, ``conv_b``, ``dt_proj`` (``model`` on ``d_inner``),
+    ``x_proj`` and ``out_proj`` (row-parallel) are read ``"slice"``, as is
+    Mamba2's ``out_proj``."""
     leaf = leaf_name(name)
+    model = mesh_sizes(mesh)["model"]
     if leaf in ("wk", "wv"):
-        return "slice" if cfg.num_kv_heads % mesh_sizes(mesh)["model"] == 0 else "parts"
+        return "slice" if cfg.num_kv_heads % model == 0 else "parts"
+    ssm = _SSM_READS.get(cfg.ssm_kind, {})
+    if leaf in ssm:
+        return ssm[leaf] if ssm_splits(cfg, model) else "whole"
     return "slice" if leaf in _MODEL_SLICED else "whole"
 
 
@@ -302,12 +331,6 @@ def _heads_local(key: str, spec) -> bool:
     return key in ("k", "v") and len(spec) >= 2 and spec[-2] == "model"
 
 
-def _whole_for_step(key: str, spec) -> bool:
-    """A leaf the step reads gathered over ``model``: a K/V cache of every
-    head (its sequence split over ``model``) and the Mamba states."""
-    return "model" in spec and not _heads_local(key, spec)
-
-
 def state_specs(cfg: ModelConfig, mesh, batch: int, s_max: int, ring_local: bool = False):
     """``cache_specs`` of a decode state of the global ``batch`` and length
     ``s_max``."""
@@ -341,25 +364,41 @@ def make_sharded_serve_steps(cfg: ModelConfig, mesh):
     * ``decode(shards, cache, specs, tokens, pos) -> (logits, cache)``: one
       token of the global batch against this rank's decode state (held
       under ``specs``). A cache whose heads split over ``model`` is read and
-      written in place; one of every KV head (its sequence on ``model``:
-      few KV heads on a wide group) and the Mamba states are gathered over
-      ``model`` for the step and sliced again after it."""
+      written in place, and so are a split Mamba block's states of the
+      rank's channels or heads (Mamba1's ``conv`` and ``h``, Mamba2's
+      ``h``). A cache of every KV head (its sequence on ``model``: few KV
+      heads on a wide group) is gathered over ``model`` for the step and
+      sliced again after it. So is Mamba2's ``conv``, whose spec splits the
+      concatenated [x, B, C] channels: the layers read and write it whole
+      (``models.ssm``)."""
     template = init_params_shapes(cfg)
     specs = param_specs(template, cfg, mesh)
     reads = {n: read_policy(n, cfg, mesh) for n in specs}
     tp = mesh.model_group()
     coord = mesh.coord
+    # a split Mamba block holds these state leaves as the rank's channels or heads
+    # across steps (their specs put model on them)
+    split = cfg.ssm_kind and ssm_group(cfg, tp) is not None
+    own = ssm_lib.RANK_STATE[cfg.ssm_kind] if split else ()
 
     def rows(t):
         t = torch.as_tensor(t, device=mesh.device)
         return local_shard(t, batch_spec(mesh, tuple(t.shape)), mesh, coord)
 
+    def held(t, spec):
+        """This rank's slice of a state leaf whole over ``model``."""
+        return local_shard(t, _model_only(spec), mesh, coord).clone() if "model" in spec else t
+
+    def gathered(key, spec) -> bool:
+        """A leaf the step reads gathered over ``model``."""
+        return "model" in spec and not _heads_local(key, spec) and key not in own
+
     def place(key, t, spec):
-        if _heads_local(key, spec):
+        if _heads_local(key, spec) or key in own:
             return t
         if key in ("k", "v"):
             t = all_kv_heads(t, cfg.num_heads, cfg.num_kv_heads, tp)
-        return local_shard(t, _model_only(spec), mesh, coord).clone() if "model" in spec else t
+        return held(t, spec)
 
     def prefill(shards, tokens, cspecs):
         tree = gathered_view(template, shards, specs, mesh, reads)
@@ -368,10 +407,10 @@ def make_sharded_serve_steps(cfg: ModelConfig, mesh):
 
     def decode(shards, cache, cspecs, tokens, pos):
         tree = gathered_view(template, shards, specs, mesh, reads)
-        whole = _map_state(lambda k, t, sp: gather(t, _model_only(sp), mesh, "cache")
-                           if _whole_for_step(k, sp) else t, cache, cspecs)
-        logits, whole = decode_step(tree, cfg, whole, rows(tokens), rows(pos), tp=tp)
-        return logits, _map_state(lambda k, t, sp: local_shard(t, _model_only(sp), mesh, coord)
-                                  .clone() if _whole_for_step(k, sp) else t, whole, cspecs)
+        state = _map_state(lambda k, t, sp: gather(t, _model_only(sp), mesh, "cache")
+                           if gathered(k, sp) else t, cache, cspecs)
+        logits, state = decode_step(tree, cfg, state, rows(tokens), rows(pos), tp=tp)
+        return logits, _map_state(lambda k, t, sp: held(t, sp) if gathered(k, sp) else t,
+                                  state, cspecs)
 
     return prefill, decode

@@ -18,11 +18,11 @@ port runs the step itself, eagerly, on ``meta`` tensors:
   and decode cells run ``fsdp.make_sharded_serve_steps`` over the same
   parameter slices, on rank 0's rows, the decode state held under
   ``cache_specs``. Rank 0 computes only its share of each layer: its query
-  heads, its ``d_ff`` slice, its experts and its rows of the vocabulary,
-  combined over the ``model`` group. A cache whose sequence lies on
-  ``model`` (fewer KV heads than ranks) is gathered over ``model`` for the
-  decode step, and the Mamba blocks' work is repeated on every rank of the
-  group (their ``d_inner`` split is not ported, ROADMAP A14b);
+  heads, its ``d_ff`` slice, its experts, its rows of the vocabulary and
+  its Mamba1 channels or Mamba2 heads (every rank computes Mamba2's B and
+  C), combined over the ``model`` group. A cache whose sequence lies on
+  ``model`` (fewer KV heads than ranks) and Mamba2's conv state are
+  gathered over ``model`` for the decode step;
 * **FLOPs:** ``torch.utils.flop_counter.FlopCounterMode`` (recomputation
   under ``cfg.remat`` included);
 * **bytes accessed:** the input and output bytes of every dispatched

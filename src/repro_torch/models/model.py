@@ -28,8 +28,9 @@ model group the tensor-parallel step splits each layer's work over
 (``layers``, ``attention``, ``moe``): the embedding and the logits over
 this rank's rows of the vocabulary (musicgen's ``heads`` per codebook),
 attention and MLP blocks column- then row-parallel, MoE layers over this
-rank's experts. The Mamba blocks read their leaves whole and every rank of
-the group runs them alike (their ``d_inner`` split is not ported).
+rank's experts, Mamba blocks over this rank's ``d_inner`` channels (Mamba1)
+or heads (Mamba2) (``ssm``). A Mamba block whose channels or heads do not
+divide over the group runs whole on every rank (``ssm_group``).
 """
 from __future__ import annotations
 
@@ -200,26 +201,53 @@ def _attn_block(cfg: ModelConfig, p, x, positions, window: Optional[int], batch_
     return x, aux
 
 
-def _ssm_block_state(cfg: ModelConfig, p, x):
-    """One Mamba block over the sequence; (x, decode state)."""
+def ssm_splits(cfg: ModelConfig, model: int) -> bool:
+    """Whether the Mamba blocks split over a model group of ``model`` ranks:
+    Mamba1's ``d_inner`` channels, or Mamba2's heads, divide evenly over it.
+    The rule is the shapes'; ``distributed.fsdp.read_policy`` reads the
+    blocks' leaves by it."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n = d_inner if cfg.ssm_kind == "mamba1" else d_inner // cfg.ssm_head_dim
+    return n % model == 0
+
+
+def ssm_group(cfg: ModelConfig, tp):
+    """``tp`` for the Mamba blocks: the group when they split over it
+    (``ssm_splits``), else ``None`` (every rank runs the whole block)."""
+    return tp if tp is not None and ssm_splits(cfg, tp.size) else None
+
+
+def _ssm_block_state(cfg: ModelConfig, p, x, tp=None):
+    """One Mamba block over the sequence; (x, decode state of this rank's
+    channels or heads)."""
     y = rmsnorm(p.norm, x, cfg.norm_eps)
+    tp = ssm_group(cfg, tp)
     if cfg.ssm_kind == "mamba1":
         h, st = ssm_lib.mamba1_with_state(p.mamba, y, d_state=cfg.ssm_state,
                                           expand=cfg.ssm_expand, d_conv=cfg.ssm_conv,
-                                          chunk=cfg.ssm_chunk)
+                                          chunk=cfg.ssm_chunk, tp=tp)
     elif cfg.ssm_impl == "ssd":
         h, st = ssm_lib.mamba2_ssd_with_state(p.mamba, y, d_state=cfg.ssm_state,
                                               expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
-                                              d_conv=cfg.ssm_conv, chunk=min(cfg.ssm_chunk, 64))
+                                              d_conv=cfg.ssm_conv, chunk=min(cfg.ssm_chunk, 64),
+                                              tp=tp)
     else:
         h, st = ssm_lib.mamba2_with_state(p.mamba, y, d_state=cfg.ssm_state,
                                           expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
-                                          d_conv=cfg.ssm_conv, chunk=cfg.ssm_chunk)
+                                          d_conv=cfg.ssm_conv, chunk=cfg.ssm_chunk, tp=tp)
     return x + h, st
 
 
-def _ssm_block(cfg: ModelConfig, p, x):
-    return _ssm_block_state(cfg, p, x)[0]
+def _ssm_block(cfg: ModelConfig, p, x, tp=None):
+    """One Mamba block over the sequence, without a decode state."""
+    y = rmsnorm(p.norm, x, cfg.norm_eps)
+    kw = dict(d_state=cfg.ssm_state, expand=cfg.ssm_expand, tp=ssm_group(cfg, tp))
+    if cfg.ssm_kind == "mamba1":
+        return x + ssm_lib.mamba1(p.mamba, y, chunk=cfg.ssm_chunk, **kw)
+    if cfg.ssm_impl == "ssd":
+        return x + ssm_lib.mamba2_ssd(p.mamba, y, head_dim=cfg.ssm_head_dim,
+                                      chunk=min(cfg.ssm_chunk, 64), **kw)
+    return x + ssm_lib.mamba2(p.mamba, y, head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk, **kw)
 
 
 # --- remat -------------------------------------------------------------------------
@@ -253,9 +281,11 @@ def _maybe_remat(fn, cfg: ModelConfig):
     Under tensor parallelism the recomputation runs the block's forward
     collectives again: with ``"dots"`` the row-parallel products' partial
     sums are kept (``mm``), but the ``reduce_from_model`` all-reduce after
-    each is not a product and runs again in the backward (two a layer, and
-    the MoE layer's one), as does ``"full"``'s; the backward's own
-    ``copy_to_model`` all-reduces run once either way.
+    each is not a product and runs again in the backward (two an attention
+    layer, and the MoE layer's one; a Mamba1 block's ``out_proj`` and
+    ``x_proj`` sums, a Mamba2 block's ``out_proj`` sum), as does
+    ``"full"``'s; the backward's own all-reduces (``copy_to_model``'s, the
+    ``x_proj`` sum's) run once either way.
 
     Outside a gradient (under ``no_grad``, or when the block's activation
     input needs none: the serving path, whose parameters need none) ``fn``
@@ -313,13 +343,13 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, *, batch_mean=None
     G, P = cfg.layer_groups()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        body = _maybe_remat(lambda h, lp: _ssm_block(cfg, lp, h), cfg)
+        body = _maybe_remat(lambda h, lp: _ssm_block(cfg, lp, h, tp), cfg)
         for lp in params.layers:
             x = body(x, lp)
     elif cfg.is_hybrid:
         def hybrid(h, group):
             for lp in group:
-                h = _ssm_block(cfg, lp, h)
+                h = _ssm_block(cfg, lp, h, tp)
             return _attn_block(cfg, params.shared_attn, h, positions, None, tp=tp)[0]
 
         body = _maybe_remat(hybrid, cfg)

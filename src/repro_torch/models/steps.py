@@ -27,8 +27,9 @@ Each step takes ``tp`` (a ``distributed.comm.ModelGroup``; ``None`` in one
 process): logits are then this rank's rows of the vocabulary, the cross
 entropy combines the group's max, sum of exponentials and gold logit, and
 a decode state holds this rank's KV heads, or every KV head when they do
-not split over the group (``distributed.fsdp.make_sharded_serve_steps``
-keeps it under ``sharding.cache_specs``).
+not split over the group, and the Mamba states of this rank's channels or
+heads (Mamba2's ``conv`` whole; ``distributed.fsdp.make_sharded_serve_steps``
+keeps the state under ``sharding.cache_specs``).
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ from repro_torch.models.model import (
     _positions,
     _ssm_block_state,
     forward,
+    ssm_group,
 )
 
 
@@ -136,7 +138,7 @@ def prefill_step(params, cfg: ModelConfig, tokens, positions=None, *, tp=None
     if cfg.family == "ssm":
         states = []
         for lp in params.layers:
-            x, st = _ssm_block_state(cfg, lp, x)
+            x, st = _ssm_block_state(cfg, lp, x, tp)
             states.append(st)
         cache = {"ssm": _stack(states)}
     elif cfg.is_hybrid:
@@ -144,7 +146,7 @@ def prefill_step(params, cfg: ModelConfig, tokens, positions=None, *, tp=None
         for group in params.layers:
             sts = []
             for lp in group:
-                x, st = _ssm_block_state(cfg, lp, x)
+                x, st = _ssm_block_state(cfg, lp, x, tp)
                 sts.append(st)
             x, kv = attn_with_cache(params.shared_attn, x, None)
             ssm_states.append(_stack(sts))
@@ -212,15 +214,18 @@ def decode_step(params, cfg: ModelConfig, cache: Dict, tokens, pos, *, tp=None
         out2, _ = _ffn(cfg, p, rmsnorm(p.mlp_norm, h, cfg.norm_eps), min(cfg.moe_group, B), tp=tp)
         return h + out2
 
+    ssm_tp = ssm_group(cfg, tp)
+
     def ssm_dec(p, h, conv, hstate):
         y = rmsnorm(p.norm, h, cfg.norm_eps)
         st = {"conv": conv, "h": hstate}
         if cfg.ssm_kind == "mamba1":
             out, new = ssm_lib.mamba1_decode(p.mamba, y, st, d_state=cfg.ssm_state,
-                                             expand=cfg.ssm_expand)
+                                             expand=cfg.ssm_expand, tp=ssm_tp)
         else:
             out, new = ssm_lib.mamba2_decode(p.mamba, y, st, d_state=cfg.ssm_state,
-                                             expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim)
+                                             expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                                             tp=ssm_tp)
         conv.copy_(new["conv"])
         hstate.copy_(new["h"])
         return h + out

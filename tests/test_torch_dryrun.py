@@ -14,7 +14,10 @@
   ``train_4k`` FLOPs a chip times the chips lie between 1.0 and 1.6 x
   ``model_flops_total`` (attention and the "dots" recompute above it), and
   ``decode_32k``'s within 10 % of 8.66e11 (2 N and the attention over the
-  32k cache, a token);
+  32k cache, a token); the Mamba blocks split too: falcon-mamba-7b's and
+  zamba2-2.7b's ``decode_32k`` FLOPs over the chips are the one-process
+  decode step's (counted on ``meta``) plus only Mamba2's B and C columns,
+  which every rank of the model group computes;
 * the udg-serve record is ``ok`` for f32 and int8 (int8 moves fewer bytes),
   and its terms are the kernel table's bound model (``kernels/bounds.py``)
   at its upper end, at the FP32 and compare rates;
@@ -30,15 +33,21 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import SHAPES, get_config as ref_get_config
 from repro.launch.dryrun import _active_params as ref_active_params
 from repro.models import init_params_shapes as ref_init_params_shapes
+from repro_torch.configs import SHAPES as PORT_SHAPES, get_config
+from repro_torch.distributed.sharding import mesh_sizes
 from repro_torch.launch import dryrun, hlo, report, roofline
+from repro_torch.models import decode_step, init_decode_state, init_params_shapes
 
 REPO = Path(__file__).resolve().parents[1]
 CELLS = (("llama3.2-1b", "decode_32k"), ("moonshot-v1-16b-a3b", "decode_32k"),
-         ("llama3.2-1b", "train_4k"))
+         ("llama3.2-1b", "train_4k"), ("falcon-mamba-7b", "decode_32k"),
+         ("zamba2-2.7b", "decode_32k"))
 SCRIPT = """
 import sys
 from repro_torch.launch import dryrun, inspect_cell
@@ -101,6 +110,43 @@ def test_each_chip_counts_its_share_of_the_model_axis(records):
     rf = train["roofline"]
     assert 1.0 <= rf["flops_per_chip"] * train["chips"] / rf["model_flops_total"] <= 1.6
     assert decode["roofline"]["flops_per_chip"] * decode["chips"] == pytest.approx(8.66e11, rel=0.1)
+
+
+def one_process_decode_flops(arch: str, shape: str) -> float:
+    """The FLOPs of the one-process ``decode_step`` of the cell (no model
+    group), counted on ``meta`` tensors."""
+    cfg, sh = get_config(arch), PORT_SHAPES[shape]
+    cache = init_decode_state(cfg, sh.global_batch, sh.seq_len, device="meta")
+    tokens = torch.empty((sh.global_batch, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((sh.global_batch,), dtype=torch.int32, device="meta")
+    with FlopCounterMode(display=False) as fc:
+        decode_step(init_params_shapes(cfg), cfg, cache, tokens, pos)
+    return float(fc.get_total_flops())
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_each_chip_counts_its_share_of_the_mamba_blocks(records, arch):
+    """A decode step's FLOPs over the chips are the one-process step's plus
+    Mamba2's B and C columns of ``in_proj``, which all 16 ranks of a model
+    group compute for their rows: falcon-mamba-7b's useful share is 1 (it
+    was 1/15.4 with the blocks repeated on every rank), and
+    ``flops_per_chip * chips / model_flops_total`` is at most 2.0 for it.
+    zamba2-2.7b's one-process step is itself 2.10 x ``model_flops_total``
+    (its shared attention block runs 9 times on one set of weights, and
+    attends over the 32k cache), and the B and C columns add 0.11 (it was
+    16.0)."""
+    _, recs, _ = records
+    r = recs[(arch, "decode_32k")]
+    assert r["ok"], r.get("error")
+    cfg, sh = get_config(arch), PORT_SHAPES["decode_32k"]
+    model = mesh_sizes(dryrun.make_production_mesh(multi_pod=False))["model"]
+    n_mamba2 = cfg.num_layers - cfg.num_layers // cfg.hybrid_every if cfg.is_hybrid else 0
+    bc = (model - 1) * 2 * cfg.d_model * 2 * cfg.ssm_state * n_mamba2 * sh.global_batch
+    rf = r["roofline"]
+    got = rf["flops_per_chip"] * r["chips"]
+    assert got == pytest.approx(one_process_decode_flops(arch, "decode_32k") + bc, rel=1e-3)
+    if not cfg.is_hybrid:
+        assert got / rf["model_flops_total"] <= 2.0
 
 
 def test_report_and_inspect_cell(records):

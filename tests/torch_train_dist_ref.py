@@ -1,9 +1,10 @@
 """The JAX package's side of ``test_torch_train_dist.py``, on eight host
 devices (run with ``XLA_FLAGS=--xla_force_host_platform_device_count=8``).
 
-    python tests/torch_train_dist_ref.py OUT.npz
+    python tests/torch_train_dist_ref.py OUT.npz [PART ...]
 
-Writes, from numpy seeds shared with ``torch_train_dist_worker.py``:
+Writes the named parts (``PARTS``; all of them by default), from numpy
+seeds shared with ``torch_train_dist_worker.py``:
 
 * ``shard/<i>``: ``NamedSharding(mesh, spec).devices_indices_map`` of
   ``SHARD_CASES[i]`` on a (pod 2, data 2, model 2) mesh, as [8, ndim, 2]
@@ -28,7 +29,13 @@ Writes, from numpy seeds shared with ``torch_train_dist_worker.py``:
   ``SERVE_NEW`` ``decode_step``s jitted with ``in_shardings`` from
   ``param_specs`` / ``cache_specs`` / ``batch_spec`` (as the reference's
   dry-run lowers them) on the meshes of ``SERVE_LAYOUTS``, from the same
-  parameters over ``serve_tokens``, [1 + SERVE_NEW, B, (K,) V].
+  parameters over ``serve_tokens``, [1 + SERVE_NEW, B, (K,) V];
+* ``<name>/metrics`` and ``<name>/prefill`` for each of ``SCAN_CASES``
+  (the f32 SMOKE config with the case's changes) on the (data 1, model 4)
+  mesh: one ``make_train_step`` and the ``prefill_step`` of
+  ``serve_tokens``' first ``SERVE_PROMPT`` positions, jitted with
+  ``in_shardings`` as above, from the arch's ``init_params(cfg,
+  PRNGKey(0))``.
 """
 import dataclasses
 import sys
@@ -208,16 +215,42 @@ def serve(out):
             out[f"serve/{arch}/{layout}"] = np.stack(steps)
 
 
-def main(path):
+def scans(out):
+    shape, names = MESH_SHAPES["data1_model4"]
+    mesh = Mesh(np.array(jax.devices()[:case.WORLD]).reshape(shape), names)
+    ns = lambda t: jax.tree_util.tree_map(lambda sp: NamedSharding(mesh, sp), t)
+    for name, (arch, changes) in case.SCAN_CASES.items():
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32", **changes)
+        params = init_params(cfg, jax.random.PRNGKey(0))
+        opt = adamw(lr=case.FSDP_LR)
+        pspecs = param_specs(params, cfg, mesh)
+        ospecs = opt_state_specs(opt.init(params), pspecs)
+        bshard = NamedSharding(mesh, batch_spec(mesh, (case.FSDP_BATCH, case.FSDP_SEQ)))
+        step = jax.jit(make_train_step(cfg, opt),
+                       in_shardings=(ns(pspecs), ns(ospecs), {"tokens": bshard, "labels": bshard}),
+                       out_shardings=(ns(pspecs), ns(ospecs), NamedSharding(mesh, P())))
+        p = jax.device_put(params, ns(pspecs))
+        _, _, m = step(p, jax.device_put(opt.init(params), ns(ospecs)), case.fsdp_batches(cfg)[0])
+        out[f"{name}/metrics"] = np.array([float(m["loss"]), float(m["grad_norm"])])
+        prompt = jnp.asarray(case.serve_tokens(cfg)[:, :case.SERVE_PROMPT].astype(np.int32))
+        B, S = prompt.shape
+        cspecs = cache_specs(jax.eval_shape(lambda: init_decode_state(cfg, B, S)), cfg, mesh)
+        prefill = jax.jit(lambda p, t: prefill_step(p, cfg, t),
+                          in_shardings=(ns(pspecs), NamedSharding(mesh, batch_spec(mesh, prompt.shape))),
+                          out_shardings=(NamedSharding(mesh, logits_spec(mesh, (B, cfg.vocab_size))),
+                                         ns(cspecs)))
+        out[f"{name}/prefill"] = np.asarray(prefill(p, prompt)[0])
+
+
+PARTS = {f.__name__: f for f in (shard_maps, psum, dp, elastic, fsdp, serve, scans)}
+
+
+def main(path, parts):
     out = {}
-    shard_maps(out)
-    psum(out)
-    dp(out)
-    elastic(out)
-    fsdp(out)
-    serve(out)
+    for name in parts or PARTS:
+        PARTS[name](out)
     np.savez(path, **out)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], sys.argv[2:])

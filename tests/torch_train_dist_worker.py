@@ -22,7 +22,14 @@ group through a file store in ``WORKDIR``. Each rank, in turn:
   of ``serve_tokens``' first ``SERVE_PROMPT`` positions and
   ``SERVE_NEW`` decode steps on a state sized for prompt + new tokens
   (the prefill's cache gathered, copied into its first positions and
-  sliced again), each step's logits gathered whole;
+  sliced again), each step's logits gathered whole, and the decode
+  steps' collectives by tag (``comm.LOG``);
+* each of ``SCAN_CASES`` (zamba2 with ``ssm_impl="ssd"``, the chunked SSD
+  scan on each rank's heads, and falcon-mamba's scan on each rank's
+  channels, both chunked by 8, so that the split scans carry their state
+  across chunks) at data 1 x model 4: one sharded step's loss and grad
+  norm and the sharded prefill's logits of ``serve_tokens``' first
+  ``SERVE_PROMPT`` positions, gathered whole;
 * ``launch.train.main`` with ``WORLD_SIZE`` set, data 2 x model 2, its
   ``get_config`` giving the f32 SMOKE config (rank 0 keeps its step-4
   checkpoint's arrays).
@@ -49,7 +56,7 @@ SHARD_CASES = (
 )
 DP_STEPS, DP_LR = 8, 1e-3
 FAIL_AT = 17
-FSDP_ARCHS = ("llama3.2-1b", "moonshot-v1-16b-a3b", "falcon-mamba-7b")
+FSDP_ARCHS = ("llama3.2-1b", "moonshot-v1-16b-a3b", "falcon-mamba-7b", "zamba2-2.7b")
 FSDP_LAYOUTS = {"data2_model2": dict(model=2, pod=1), "pod2_data2": dict(model=1, pod=2),
                 "data1_model4": dict(model=4, pod=1)}
 FSDP_STEPS, FSDP_LR, FSDP_BATCH, FSDP_SEQ = 3, 3e-4, 8, 32
@@ -57,6 +64,10 @@ FSDP_STEPS, FSDP_LR, FSDP_BATCH, FSDP_SEQ = 3, 3e-4, 8, 32
 # SMOKE ``moe_group``), as the one-process step groups them
 SERVE_LAYOUTS = ("data2_model2", "data1_model4")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 128, 16, 4
+# config changes of the scan cases, run at data 1 x model 4: FSDP_SEQ and
+# SERVE_PROMPT span several chunks of 8
+SCAN_CASES = {"ssd": ("zamba2-2.7b", dict(ssm_impl="ssd", ssm_chunk=8)),
+              "mamba1_chunked": ("falcon-mamba-7b", dict(ssm_chunk=8))}
 LAUNCH = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", "--steps", "4", "--batch", "4",
           "--seq", "16", "--ckpt-every", "2"]
 
@@ -259,7 +270,7 @@ def fsdp_part(rank, workdir, out):
 
 def serve_part(rank, workdir, out):
     import torch
-    from repro_torch.distributed import fsdp, make_train_mesh
+    from repro_torch.distributed import comm, fsdp, make_train_mesh
     from repro_torch.distributed.sharding import logits_spec, param_specs
     from repro_torch.models import init_decode_state
 
@@ -280,14 +291,47 @@ def serve_part(rank, workdir, out):
             specs = fsdp.state_specs(cfg, mesh, B, S + SERVE_NEW)
             state = fsdp.shard_cache(state, specs, mesh)
             steps = [logits]
-            for i in range(SERVE_NEW):
-                logits, state = decode(shards, state, specs, toks[:, S + i:S + i + 1],
-                                       torch.full((B,), S + i))
-                steps.append(logits)
+            comm.LOG = []
+            try:
+                for i in range(SERVE_NEW):
+                    logits, state = decode(shards, state, specs, toks[:, S + i:S + i + 1],
+                                           torch.full((B,), S + i))
+                    steps.append(logits)
+                log = comm.LOG
+            finally:
+                comm.LOG = None
+            out[f"serve/{arch}/{layout}/decode_collectives"] = np.array(
+                [f"{kind} {tag}" for kind, _, tag in log])
             whole = [fsdp.gather(t, logits_spec(mesh, (B,) + tuple(t.shape[1:-1])
                                                 + (cfg.vocab_size,)), mesh).numpy() for t in steps]
             if rank == 0:
                 out[f"serve/{arch}/{layout}"] = np.stack(whole)
+
+
+def scan_config(name):
+    arch, changes = SCAN_CASES[name]
+    return dataclasses.replace(f32_smoke(arch), **changes)
+
+
+def scan_part(rank, workdir, out):
+    from repro_torch.distributed import fsdp, make_train_mesh
+    from repro_torch.distributed.sharding import logits_spec
+    from repro_torch.train import adamw
+
+    mesh = make_train_mesh(device="cpu", **FSDP_LAYOUTS["data1_model4"])
+    for name, (arch, _) in SCAN_CASES.items():
+        cfg = scan_config(name)
+        model = load_model(cfg, os.path.join(workdir, f"fsdp_init_{arch}.npz"))
+        shard_state, step = fsdp.make_sharded_train_step(cfg, adamw(lr=FSDP_LR), mesh)
+        state = shard_state(model)
+        prefill, _ = fsdp.make_sharded_serve_steps(cfg, mesh)
+        toks = serve_tokens(cfg)[:, :SERVE_PROMPT]
+        logits, _ = prefill(state["params"], toks,
+                            fsdp.state_specs(cfg, mesh, SERVE_BATCH, SERVE_PROMPT))
+        whole = fsdp.gather(logits, logits_spec(mesh, (SERVE_BATCH, cfg.vocab_size)), mesh)
+        _, m = step(state, fsdp_batches(cfg)[0])
+        out[f"{name}/metrics"] = np.array([float(m["loss"]), float(m["grad_norm"])])
+        out[f"{name}/prefill"] = whole.numpy()
 
 
 def launcher_part(rank, workdir, out):
@@ -317,6 +361,7 @@ def rank_main(rank, workdir):
         elastic_part(rank, workdir, out)
         fsdp_part(rank, workdir, out)
         serve_part(rank, workdir, out)
+        scan_part(rank, workdir, out)
         launcher_part(rank, workdir, out)
         np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
     finally:
