@@ -48,6 +48,7 @@ from repro_torch.exec.plan import (
 )
 from repro_torch.kernels import ops
 from repro_torch.obs.stats import SearchStats, combine_stats, stats_to_host
+from repro_torch.obs.trace import trace_span
 from repro_torch.search.batched import LOOP_BLOCK, prepare_states_extended, search_core
 from repro_torch.search.device_graph import device_graph_from_numpy, export_device_graph
 
@@ -107,12 +108,13 @@ def planned_exec_core(
         scales=scales, fused=fused, block=block, stats=stats,
     )
     (ids_g, d_g), (ids_w, d_w) = out_g[:2], out_w[:2]
-    nrm = effective_norms(table, scales, norms)
-    ids_b, d_b = brute_topk_impl(table, nrm, q, bf_ids, k=k, scales=scales)
-    sel = plans[:, None]
-    graph, wide = sel == int(QueryPlan.GRAPH), sel == int(QueryPlan.GRAPH_WIDE)
-    ids = torch.where(graph, ids_g, torch.where(wide, ids_w, ids_b))
-    d = torch.where(graph, d_g, torch.where(wide, d_w, d_b))
+    with trace_span("exec.select"):
+        nrm = effective_norms(table, scales, norms)
+        ids_b, d_b = brute_topk_impl(table, nrm, q, bf_ids, k=k, scales=scales)
+        sel = plans[:, None]
+        graph, wide = sel == int(QueryPlan.GRAPH), sel == int(QueryPlan.GRAPH_WIDE)
+        ids = torch.where(graph, ids_g, torch.where(wide, ids_w, ids_b))
+        d = torch.where(graph, d_g, torch.where(wide, d_w, d_b))
     if stats:
         return ids, d, combine_stats(out_g[2], out_w[2])
     return ids, d
@@ -260,66 +262,74 @@ def execute_batch(
     ``batched_udg_search`` (``DeviceGraph.serving_labels``)."""
     if plan not in PLANS:
         raise ValueError(f"plan={plan!r} not in {PLANS}")
-    dev = resolve_device(device)
-    config = config or default_planner_config()
-    states, ep, invalid = prepare_states_extended(dg, s_q, t_q)
-    B = states.shape[0]
-    if row_mask is not None:
-        row_mask = np.asarray(row_mask, dtype=bool).reshape(-1)
-        if row_mask.shape[0] != B:
+    with trace_span("exec.batch"):
+        dev = resolve_device(device)
+        config = config or default_planner_config()
+        states, ep, invalid = prepare_states_extended(dg, s_q, t_q)
+        B = states.shape[0]
+        if row_mask is not None:
+            row_mask = np.asarray(row_mask, dtype=bool).reshape(-1)
+            if row_mask.shape[0] != B:
+                raise ValueError(
+                    f"row_mask has {row_mask.shape[0]} rows, batch has {B}"
+                )
+            invalid = invalid | ~row_mask
+            ep = np.where(row_mask, ep, -1).astype(np.int32)
+        if plan in ("auto", "brute") and dg.planner is None:
             raise ValueError(
-                f"row_mask has {row_mask.shape[0]} rows, batch has {B}"
-            )
-        invalid = invalid | ~row_mask
-        ep = np.where(row_mask, ep, -1).astype(np.int32)
-    if plan in ("auto", "brute") and dg.planner is None:
-        raise ValueError(
-            f"plan={plan!r} requires a DeviceGraph planner "
-            "(export with repro_torch.exec.export_planned_graph)")
-    if plan == "auto":
-        pb = plan_queries(dg.planner, states, invalid, config=config)
-        plans, bf_ids = pb.plans, pb.bf_ids
-    elif plan in ("graph", "wide"):
-        pb = None
+                f"plan={plan!r} requires a DeviceGraph planner "
+                "(export with repro_torch.exec.export_planned_graph)")
+        if plan == "auto":
+            pb = plan_queries(dg.planner, states, invalid, config=config)
+            plans, bf_ids = pb.plans, pb.bf_ids
+        else:
+            pb = None
+            with trace_span("exec.plan"):
+                plans, bf_ids = _forced_plan(dg, plan, states, invalid, config)
+        ep_graph, ep_wide = mask_entry_points(ep, plans)
+        wide_beam = max(beam * config.wide_beam_scale, beam)
+        wide_expand = config.wide_expand if fused else 1
+        mi = max_iters if max_iters is not None else 2 * beam
+        with trace_span("exec.stage"):
+            labels = dg.serving_labels(fused=fused, packed=packed, device=dev)
+            di = dg.device(dev)
+            host = (np.asarray(q, dtype=np.float32), states, ep_graph, ep_wide, bf_ids, plans)
+            staged = [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in host]
+        out = planned_exec_core(
+            di.table, di.nbr, labels, *staged,
+            k=k, beam=beam, wide_beam=wide_beam,
+            max_iters=mi, wide_max_iters=mi * config.wide_beam_scale,
+            expand=expand, wide_expand=min(wide_expand, wide_beam),
+            norms=di.norms, scales=di.scales, fused=fused, block=block,
+            stats=stats,
+        )
+        with trace_span("exec.fetch"):
+            ret = (out[0].cpu().numpy(), out[1].cpu().numpy())
+        if return_plans:
+            ret += (pb,)
+        if stats:
+            ret += (stats_to_host(out[2]),)
+        return ret
+
+
+def _forced_plan(dg, plan, states, invalid, config):
+    """(plans, bf_ids) of a forced strategy: ``"graph"`` / ``"wide"`` for
+    every row, or ``"brute"`` with exact valid sets of ANY size, the
+    capacity rounded up to a power of two."""
+    B = states.shape[0]
+    if plan in ("graph", "wide"):
         forced = QueryPlan.GRAPH if plan == "graph" else QueryPlan.GRAPH_WIDE
         plans = np.full(B, int(forced), dtype=np.int32)
-        bf_ids = np.full((B, config.brute_max_valid), -1, dtype=np.int32)
-    else:  # forced brute: exact valid sets of ANY size, capacity rounded
-        # up to a power of two
-        pb = None
-        plans = np.full(B, int(QueryPlan.BRUTE_VALID), dtype=np.int32)
-        lists = [
-            np.empty(0, np.int32) if invalid[i]
-            else dg.planner.exact_valid_ids(int(states[i, 0]), int(states[i, 1]))
-            for i in range(B)
-        ]
-        cap = max(int(max((l.shape[0] for l in lists), default=1)), 1)
-        cap = 1 << (cap - 1).bit_length()
-        bf_ids = np.full((B, cap), -1, dtype=np.int32)
-        for i, l in enumerate(lists):
-            bf_ids[i, : l.shape[0]] = l
-    ep_graph, ep_wide = mask_entry_points(ep, plans)
-    wide_beam = max(beam * config.wide_beam_scale, beam)
-    wide_expand = config.wide_expand if fused else 1
-    mi = max_iters if max_iters is not None else 2 * beam
-    labels = dg.serving_labels(fused=fused, packed=packed, device=dev)
-    di = dg.device(dev)
-
-    def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
-
-    out = planned_exec_core(
-        di.table, di.nbr, labels, put(np.asarray(q, dtype=np.float32)),
-        put(states), put(ep_graph), put(ep_wide), put(bf_ids), put(plans),
-        k=k, beam=beam, wide_beam=wide_beam,
-        max_iters=mi, wide_max_iters=mi * config.wide_beam_scale,
-        expand=expand, wide_expand=min(wide_expand, wide_beam),
-        norms=di.norms, scales=di.scales, fused=fused, block=block,
-        stats=stats,
-    )
-    ret = (out[0].cpu().numpy(), out[1].cpu().numpy())
-    if return_plans:
-        ret += (pb,)
-    if stats:
-        ret += (stats_to_host(out[2]),)
-    return ret
+        return plans, np.full((B, config.brute_max_valid), -1, dtype=np.int32)
+    plans = np.full(B, int(QueryPlan.BRUTE_VALID), dtype=np.int32)
+    lists = [
+        np.empty(0, np.int32) if invalid[i]
+        else dg.planner.exact_valid_ids(int(states[i, 0]), int(states[i, 1]))
+        for i in range(B)
+    ]
+    cap = max(int(max((l.shape[0] for l in lists), default=1)), 1)
+    cap = 1 << (cap - 1).bit_length()
+    bf_ids = np.full((B, cap), -1, dtype=np.int32)
+    for i, l in enumerate(lists):
+        bf_ids[i, : l.shape[0]] = l
+    return plans, bf_ids

@@ -33,6 +33,7 @@ import numpy as np
 
 from repro_torch.exec.estimator import SelectivityEstimator
 from repro_torch.obs.metrics import COUNT_BUCKETS, get_registry
+from repro_torch.obs.trace import trace_span
 
 
 class QueryPlan(enum.IntEnum):
@@ -111,8 +112,11 @@ def plan_queries(
     epoch-0 streaming tier with no compacted graph) every valid row falls
     back to ``GRAPH`` — today's behavior.
     """
-    states = np.asarray(states)
-    invalid = np.asarray(invalid, dtype=bool)
+    with trace_span("exec.plan"):
+        return _plan(est, np.asarray(states), np.asarray(invalid, dtype=bool), config)
+
+
+def _plan(est, states, invalid, config) -> PlanBatch:
     B = states.shape[0]
     plans = np.full(B, int(QueryPlan.GRAPH), dtype=np.int32)
     bf_ids = np.full((B, config.brute_max_valid), -1, dtype=np.int32)
@@ -143,31 +147,28 @@ def _record_plan_batch(pb: PlanBatch) -> PlanBatch:
     """Fold one planning result into the metrics registry: per-strategy
     route counts, count-bound width, and — on the brute rows, where the
     exact valid count is known — the observed slack of each bound."""
-    reg = get_registry()
-    routes = reg.counter(
-        "repro_planner_routes_total", "queries routed per execution strategy"
-    )
-    for name, cnt in pb.mix().items():
-        if cnt:
-            routes.inc(cnt, plan=name)
-    width = reg.histogram(
-        "repro_planner_bound_width",
-        "estimator count-bound width (hi - lo) per query",
-        buckets=COUNT_BUCKETS,
-    )
-    width.observe_many((float(x) for x in pb.count_hi - pb.count_lo))
-    brute = pb.plans == int(QueryPlan.BRUTE_VALID)
-    if np.any(brute):
-        actual = np.count_nonzero(pb.bf_ids[brute] >= 0, axis=1)
-        slack = reg.histogram(
-            "repro_planner_bound_slack",
-            "bound minus exact valid count on brute-planned rows",
+    with trace_span("exec.plan.record"):
+        reg = get_registry()
+        routes = reg.counter(
+            "repro_planner_routes_total", "queries routed per execution strategy"
+        )
+        for name, cnt in pb.mix().items():
+            if cnt:
+                routes.inc(cnt, plan=name)
+        width = reg.histogram(
+            "repro_planner_bound_width",
+            "estimator count-bound width (hi - lo) per query",
             buckets=COUNT_BUCKETS,
         )
-        slack.observe_many(
-            (float(x) for x in pb.count_hi[brute] - actual), bound="hi"
-        )
-        slack.observe_many(
-            (float(x) for x in actual - pb.count_lo[brute]), bound="lo"
-        )
+        width.observe_many(pb.count_hi - pb.count_lo)
+        brute = pb.plans == int(QueryPlan.BRUTE_VALID)
+        if np.any(brute):
+            actual = np.count_nonzero(pb.bf_ids[brute] >= 0, axis=1)
+            slack = reg.histogram(
+                "repro_planner_bound_slack",
+                "bound minus exact valid count on brute-planned rows",
+                buckets=COUNT_BUCKETS,
+            )
+            slack.observe_many(pb.count_hi[brute] - actual, bound="hi")
+            slack.observe_many(actual - pb.count_lo[brute], bound="lo")
     return pb

@@ -3,14 +3,20 @@ Prometheus/JSON export and profiling spans (the JAX package's ``obs``).
 
   * ``repro_torch.obs.metrics``: counters, gauges and fixed-bucket
     histograms with p50/p90/p99 summaries, one process-default registry
-    (a copy of the JAX package's, stdlib only);
+    (a copy of the JAX package's; ``Histogram.observe_many`` takes its
+    values in one numpy pass);
   * ``repro_torch.obs.stats``: the ``SearchStats`` counters the search
     cores emit with ``stats=True``, and ``record_search_stats``, which folds
     them into the registry;
   * ``repro_torch.obs.export``: Prometheus text, JSON snapshots, file
     writers and a daemon-thread HTTP endpoint (a copy, stdlib only);
-  * ``repro_torch.obs.trace``: ``trace_span`` / ``capture_trace`` on
-    ``torch.profiler`` and NVTX.
+  * ``repro_torch.obs.trace``: ``trace_span``, the one span primitive: on
+    the query path a fixed catalog of spans (``SPANS``) that costs two
+    clock reads and an add into the open batch's slot, always on, summed
+    by ``TOTALS`` and fed to ``repro_span_seconds`` once a batch; a
+    ``record_function`` range only while a profiler runs;
+    ``capture_trace`` writes a Chrome trace with the spans beside the
+    kernels.
 """
 from repro_torch.obs.export import (
     MetricsServer,

@@ -19,8 +19,9 @@ Design constraints, in order:
     so export is O(buckets) and two processes' histograms are mergeable
     (the Prometheus model). p50/p90/p99 summaries are bucket-interpolated,
     tightened by the tracked min/max;
-  * **no dependencies** — stdlib only; ``repro_torch.obs`` sits below every
-    serving layer and imports none of them.
+  * **few dependencies** — the stdlib, and numpy for ``observe_many``;
+    ``repro_torch.obs`` sits below every serving layer and imports none of
+    them.
 
 Metric naming follows Prometheus conventions: ``snake_case`` with a
 ``repro_`` prefix, ``_total`` suffix on counters, unit suffixes
@@ -33,6 +34,8 @@ import math
 import re
 import threading
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -155,6 +158,7 @@ class Histogram(_Metric):
         if not all(math.isfinite(x) for x in b):
             raise ValueError("buckets must be finite (+Inf is implicit)")
         self.buckets = b
+        self._edges = np.asarray(b)
 
     def observe(self, value: float, **labels: str) -> None:
         value = float(value)
@@ -176,8 +180,26 @@ class Histogram(_Metric):
             s.max = max(s.max, value)
 
     def observe_many(self, values: Iterable[float], **labels: str) -> None:
-        for v in values:
-            self.observe(v, **labels)
+        """``observe`` of each value, in one pass under one lock: the same
+        buckets, count, min and max, and the sum added in the same order
+        (a sequential ``cumsum``), so state and export are equal."""
+        # an array converts whole: iterating one makes a scalar per value
+        v = (np.asarray(values, dtype=np.float64).ravel() if isinstance(values, np.ndarray)
+             else np.fromiter(values, dtype=np.float64))
+        if v.size == 0:
+            return
+        key = _label_key(labels)
+        counts = np.bincount(np.searchsorted(self._edges, v, side="left"),
+                             minlength=len(self.buckets) + 1)
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                s = self._series[key] = _HistSeries(len(self.buckets))
+            s.counts = [a + int(b) for a, b in zip(s.counts, counts)]
+            s.sum = float(np.cumsum(np.concatenate(([s.sum], v)))[-1])
+            s.count += int(v.size)
+            s.min = min(s.min, float(np.fmin.reduce(v)))
+            s.max = max(s.max, float(np.fmax.reduce(v)))
 
     def percentile(self, q: float, **labels: str) -> float:
         """Bucket-interpolated quantile ``q`` in [0, 1]; NaN when empty."""

@@ -39,7 +39,9 @@ iterations between tests, never more than ``max_iters`` in total. An
 iteration after a row has finished is a no-op for it (no live entry → all
 neighbor ids -1 → all-inf candidates → unchanged beam, no bitmap bits), so
 results do not depend on ``block``. ``LOOP_STATS`` counts the tests (host
-syncs) and iterations.
+syncs) and iterations; inside ``repro_torch.exec.execute_batch`` each test
+is a ``search.sync`` span and each block a ``search.block`` span
+(``repro_torch.obs.trace``).
 
 ``stats=True`` also returns a ``repro_torch.obs.SearchStats`` of traversal
 counters, tallied on the device from each iteration's live mask, candidate
@@ -65,6 +67,7 @@ from repro_torch.obs.stats import (
     init_tally,
     stats_to_host,
 )
+from repro_torch.obs.trace import trace_span
 from repro_torch.search.device_graph import DeviceGraph
 
 INF = float("inf")
@@ -259,16 +262,19 @@ def search_core(
     it = 0
     while it < max_iters:
         LOOP_STATS["syncs"] += 1
-        if not bool(torch.any(~beam_exp & torch.isfinite(beam_d))):
+        with trace_span("search.sync"):
+            active = bool(torch.any(~beam_exp & torch.isfinite(beam_d)))
+        if not active:
             break
-        for _ in range(min(block, max_iters - it)):
-            beam_ids, beam_d, beam_exp, visited, masks = body(
-                beam_ids, beam_d, beam_exp, visited)
-            if stats:
-                live, nb, d_new, keep = masks
-                accumulate_iteration(tally, live=live, nb=nb, d_new=d_new,
-                                     keep=keep, it=it)
-            it += 1
+        with trace_span("search.block"):
+            for _ in range(min(block, max_iters - it)):
+                beam_ids, beam_d, beam_exp, visited, masks = body(
+                    beam_ids, beam_d, beam_exp, visited)
+                if stats:
+                    live, nb, d_new, keep = masks
+                    accumulate_iteration(tally, live=live, nb=nb, d_new=d_new,
+                                         keep=keep, it=it)
+                it += 1
     LOOP_STATS["iterations"] += it
     if stats:
         st = finalize_stats(tally, beam_d=beam_d, beam_exp=beam_exp, visited=visited)
