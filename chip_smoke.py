@@ -1051,6 +1051,19 @@ def main_path_ab(run, want, rounds: int = 5) -> dict:
 CAPTURE_ITERS = (1, 8, 32)
 
 
+@contextlib.contextmanager
+def eager_loop():
+    """The search loop run eagerly inside the block: a wrapper put in place
+    of a kernel's entry point sees each launch only where Python makes it,
+    and a replayed CUDA graph (``search_mod.LoopGraphs``) makes none."""
+    entry = search_mod._graph_entry
+    search_mod._graph_entry = lambda key, make: None
+    try:
+        yield
+    finally:
+        search_mod._graph_entry = entry
+
+
 def merge_captures(run, n: int) -> dict:
     """B2 on the loop's own inputs: the auto batch (outside the counted main
     path) run twice with ``ops.beam_merge`` recorded, once to count the
@@ -1071,10 +1084,11 @@ def merge_captures(run, n: int) -> dict:
 
     ops.beam_merge = record
     try:
-        run()
-        last.update(calls)
-        calls.clear()
-        run()
+        with eager_loop():
+            run()
+            last.update(calls)
+            calls.clear()
+            run()
     finally:
         ops.beam_merge = merge
     names = {BEAM: "graph", 2 * BEAM: "wide"}
@@ -1703,7 +1717,8 @@ def held_launches(what: str, cases: list):
                      ("filter_dist", dense), ("beam_merge", merge)):
         setattr(ops, name, fn)
     try:
-        yield
+        with eager_loop():
+            yield
     finally:
         for name, fn in wrapped.items():
             setattr(ops, name, fn)

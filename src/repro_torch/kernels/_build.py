@@ -112,6 +112,12 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def loaded(name: str):
+    """The library the wrappers call for ``name`` now, or ``None`` before
+    its first use; builds nothing."""
+    return _libs.get(name)
+
+
 @contextlib.contextmanager
 def swapped(name: str, lib):
     """Within the block the wrappers call ``lib``, another build of

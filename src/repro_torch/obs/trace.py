@@ -51,6 +51,7 @@ SPANS = (
     "exec.plan.record",      # the planner's metrics (_record_plan_batch)
     "exec.stage",            # copies to the device, serving_labels
     "search.block",          # one block of search-loop iterations (launches)
+    "search.block.replay",   # the block as one CUDA graph replay
     "search.sync",           # the loop's "any row active" test
     "exec.select",           # the brute scan and the per-row plan select
     "exec.fetch",            # ids and distances back to the host

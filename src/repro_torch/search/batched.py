@@ -43,6 +43,18 @@ syncs) and iterations; inside ``repro_torch.exec.execute_batch`` each test
 is a ``search.sync`` span and each block a ``search.block`` span
 (``repro_torch.obs.trace``).
 
+On the card, the packed fused branch without ``stats`` runs as CUDA graphs
+once its key (``graph_key``: device, shapes, dtypes, loop sizes, the index's
+addresses, the kernel libraries) has been seen before: the search's set-up
+and one block of ``block`` iterations are captured (``LoopGraphs``) and then
+replayed each call, with the same "any row active" test between two blocks;
+a last block shorter than ``block`` runs eagerly. The same ops run in the
+same order on the same stream, so the answers are the eager loop's bit for
+bit. Each block replay is a ``search.block.replay`` span inside its
+``search.block`` span. A key seen once, CPU tensors, ``stats=True`` and the
+other branches run eagerly. ``GraphCache`` keeps the captured searches of
+the process.
+
 ``stats=True`` also returns a ``repro_torch.obs.SearchStats`` of traversal
 counters, tallied on the device from each iteration's live mask, candidate
 ids, scorer distances and the merge's keep mask (four reductions an
@@ -52,6 +64,9 @@ counters.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+from collections import OrderedDict
 from typing import Tuple
 
 import numpy as np
@@ -59,7 +74,7 @@ import torch
 
 from repro_torch.core.predicates import get_relation
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.ref import set_bits, warp_dot
 from repro_torch.obs.stats import (
     accumulate_iteration,
@@ -73,6 +88,8 @@ from repro_torch.search.device_graph import DeviceGraph
 INF = float("inf")
 LOOP_BLOCK = 8          # iterations between two "any row active" tests
 LOOP_STATS = {"syncs": 0, "iterations": 0}
+LOOP_GRAPHS = 8         # captured searches kept: both searches of four indexes
+LOOP_SIGHTINGS = 64     # keys remembered after their first sighting
 
 
 def prepare_states_extended(
@@ -121,6 +138,141 @@ def _select(beam_ids, beam_d, beam_exp, M):
     cur_safe = torch.where(live, cur, 0)
     beam_exp = beam_exp.scatter(1, j, torch.gather(beam_exp, 1, j) | live)
     return live, cur_safe, beam_exp
+
+
+def graph_key(table, nbr, labels, norms, scales, q, states, ep, *, beam, expand,
+              max_iters, block) -> tuple:
+    """What a captured search bakes in: the device, every shape and dtype
+    (``q`` is f32 by then), the loop's sizes, the addresses of the index's
+    tensors and the kernel libraries its launches call."""
+    return (q.device, tuple(q.shape), states.dtype, ep.dtype, tuple(table.shape),
+            table.dtype, tuple(nbr.shape), tuple(labels.shape), beam, expand, max_iters, block,
+            tuple(None if t is None else t.data_ptr() for t in (table, nbr, labels, norms, scales)),
+            tuple(_build.loaded(name) for name in ("filter_dist", "beam_merge")))
+
+
+def _capture(fn, stream, pool):
+    """``fn``'s device work as a CUDA graph captured on ``stream`` (into
+    ``pool``, else a pool of its own), and the kernel launches it counted in
+    ``ops.LAUNCHES``: a capture launches nothing, so they are taken back
+    out here and added at each replay."""
+    graph = torch.cuda.CUDAGraph()
+    before = dict(ops.LAUNCHES)
+    with torch.cuda.stream(stream):
+        graph.capture_begin(*(() if pool is None else (pool,)),
+                            capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    launches = {name: c - before[name] for name, c in ops.LAUNCHES.items() if c != before[name]}
+    for name, c in launches.items():
+        ops.LAUNCHES[name] -= c
+    return graph, launches
+
+
+class LoopGraphs:
+    """One search captured as two CUDA graphs sharing a memory pool: its
+    set-up (entry distances, beam, visited bitmap) and one block of loop
+    iterations. Both read the static inputs ``q``, ``states``, ``ep``; the
+    set-up writes the beam and bitmap into ``state``, the block starts from
+    ``state`` and writes its last iteration's beam back (B2 sets the bitmap
+    in place). Holds the tensors whose addresses the graphs bake in
+    (``pinned``), so no address is reused under it. A call holds ``lock``
+    while it uses the entry, and releases it on leaving ``with``."""
+
+    def __init__(self, pinned, q, states, ep, beam: int, words: int):
+        self.pinned = pinned
+        self.lock = threading.Lock()
+        self.q, self.states, self.ep = (torch.empty_like(t) for t in (q, states, ep))
+        B, dev = q.shape[0], q.device
+        self.state = (torch.empty((B, beam), dtype=torch.int32, device=dev),
+                      torch.empty((B, beam), dtype=torch.float32, device=dev),
+                      torch.empty((B, beam), dtype=torch.bool, device=dev),
+                      torch.empty((B, words), dtype=torch.int32, device=dev))
+        self.setup = self.block = None      # (graph, {kernel: launches a replay adds})
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.lock.release()
+        return False
+
+    def load(self, q, states, ep):
+        """Copy one call's inputs into the static inputs; returns those."""
+        for dst, src in zip((self.q, self.states, self.ep), (q, states, ep)):
+            dst.copy_(src)
+        return self.q, self.states, self.ep
+
+    def capture(self, init, body, block: int) -> None:
+        """Capture ``init()`` and ``block`` calls of ``body``; both must
+        read the static inputs."""
+        stream = torch.cuda.Stream(self.q.device)
+        stream.wait_stream(torch.cuda.current_stream(self.q.device))
+
+        def set_up():
+            for dst, src in zip(self.state, init()):
+                dst.copy_(src)
+
+        def iterate():
+            s = self.state
+            for _ in range(block):
+                s = body(*s)[:4]
+            for dst, src in zip(self.state[:3], s[:3]):
+                dst.copy_(src)
+
+        setup = _capture(set_up, stream, None)
+        self.setup, self.block = setup, _capture(iterate, stream, setup[0].pool())
+
+    @staticmethod
+    def replay(piece) -> None:
+        graph, launches = piece
+        graph.replay()
+        for name, c in launches.items():
+            ops.LAUNCHES[name] += c
+
+
+class GraphCache:
+    """The process's captured searches by ``graph_key``: at most ``size``,
+    the least recently used evicted first (its graphs, memory pool and
+    buffers are freed with the last reference). A key gets an entry on its
+    second sighting, so a shape seen once (a streaming step's odd batch, a
+    segmented worklist) runs eagerly and pays no capture."""
+
+    def __init__(self, size: int = LOOP_GRAPHS, sightings: int = LOOP_SIGHTINGS):
+        self.size, self.sightings = size, sightings
+        self._lock = threading.Lock()
+        self._seen: OrderedDict = OrderedDict()
+        self._entries: OrderedDict = OrderedDict()
+
+    def take(self, key, make):
+        """The entry of ``key`` with its lock held for the caller, made by
+        ``make()`` at the key's second sighting; ``None`` at its first, or
+        while another call holds the entry."""
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+            elif key not in self._seen:
+                self._seen[key] = None
+                if len(self._seen) > self.sightings:
+                    self._seen.popitem(last=False)
+                return None
+            else:
+                del self._seen[key]
+                entry = self._entries[key] = make()
+                if len(self._entries) > self.size:
+                    self._entries.popitem(last=False)
+        return entry if entry.lock.acquire(blocking=False) else None
+
+
+_GRAPHS = GraphCache()
+
+
+def _graph_entry(key, make):
+    """The captured search of ``key`` for this call, or ``None``: run eagerly."""
+    return _GRAPHS.take(key, make)
 
 
 def _dedup(nb, d_new, n):
@@ -184,33 +336,43 @@ def search_core(
     ME = M * E
     dev = q.device
     q = q.float()
+    if fused and norms is None:
+        raise ValueError("the fused branches score with cached norms: pass norms")
+    graphs = None
+    if packed and fused and not stats and B and dev.type == "cuda":
+        graphs = _graph_entry(
+            graph_key(table, nbr, labels, norms, scales, q, states, ep, beam=L, expand=M,
+                      max_iters=max_iters, block=block),
+            lambda: LoopGraphs((table, nbr, labels, norms, scales), q, states, ep, L,
+                               (n + 31) // 32))
 
     def deq(idx):
         """Rows ``idx`` of the table in f32 (dequantizing int8 storage)."""
         out = table[idx].float()
         return out if scales is None else out * scales[idx][..., None]
 
-    has_ep = ep >= 0
-    ep_safe = torch.where(has_ep, ep, torch.zeros_like(ep)).long()
-    # summed in f64 in one order, rounded once: the card and the CPU agree
-    diff = q - deq(ep_safe)
-    d_ep = warp_dot(diff, diff)
+    def init():
+        """The beam holding each row's entry, and the visited set."""
+        has_ep = ep >= 0
+        ep_safe = torch.where(has_ep, ep, torch.zeros_like(ep)).long()
+        # summed in f64 in one order, rounded once: the card and the CPU agree
+        diff = q - deq(ep_safe)
+        d_ep = warp_dot(diff, diff)
 
-    beam_ids = torch.full((B, L), -1, dtype=torch.int32, device=dev)
-    beam_d = torch.full((B, L), INF, dtype=torch.float32, device=dev)
-    beam_exp = torch.zeros((B, L), dtype=torch.bool, device=dev)
-    beam_ids[:, 0] = torch.where(has_ep, ep, -1)
-    beam_d[:, 0] = torch.where(has_ep, d_ep, INF)
+        beam_ids = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+        beam_d = torch.full((B, L), INF, dtype=torch.float32, device=dev)
+        beam_exp = torch.zeros((B, L), dtype=torch.bool, device=dev)
+        beam_ids[:, 0] = torch.where(has_ep, ep, -1)
+        beam_d[:, 0] = torch.where(has_ep, d_ep, INF)
+        if fused:
+            visited = torch.zeros((B, (n + 31) // 32), dtype=torch.int32, device=dev)
+            ep_bit = torch.where(has_ep, 1 << (ep_safe & 31), 0).to(torch.int32)
+            visited.scatter_add_(1, (ep_safe >> 5)[:, None], ep_bit[:, None])
+        else:
+            visited = torch.zeros((B, n), dtype=torch.uint8, device=dev)
+            visited[torch.arange(B, device=dev), ep_safe] = has_ep.to(torch.uint8)
+        return beam_ids, beam_d, beam_exp, visited
 
-    if fused:
-        if norms is None:
-            raise ValueError("the fused branches score with cached norms: pass norms")
-        visited = torch.zeros((B, (n + 31) // 32), dtype=torch.int32, device=dev)
-        ep_bit = torch.where(has_ep, 1 << (ep_safe & 31), 0).to(torch.int32)
-        visited.scatter_add_(1, (ep_safe >> 5)[:, None], ep_bit[:, None])
-    else:
-        visited = torch.zeros((B, n), dtype=torch.uint8, device=dev)
-        visited[torch.arange(B, device=dev), ep_safe] = has_ep.to(torch.uint8)
     if labels is None:      # broad: every tuple passes the all-zero test
         zero_lab = torch.zeros((B, ME, 4), dtype=torch.int32, device=dev)
 
@@ -258,28 +420,44 @@ def search_core(
         return beam_ids, beam_d, beam_exp, visited, (live, nb, d_new, keep)
 
     body = unfused_body if not fused else packed_body if packed else int32_body
-    tally = init_tally(B, max_iters, dev) if stats else None
-    it = 0
-    while it < max_iters:
-        LOOP_STATS["syncs"] += 1
-        with trace_span("search.sync"):
-            active = bool(torch.any(~beam_exp & torch.isfinite(beam_d)))
-        if not active:
-            break
-        with trace_span("search.block"):
-            for _ in range(min(block, max_iters - it)):
-                beam_ids, beam_d, beam_exp, visited, masks = body(
-                    beam_ids, beam_d, beam_exp, visited)
-                if stats:
-                    live, nb, d_new, keep = masks
-                    accumulate_iteration(tally, live=live, nb=nb, d_new=d_new,
-                                         keep=keep, it=it)
-                it += 1
-    LOOP_STATS["iterations"] += it
-    if stats:
-        st = finalize_stats(tally, beam_d=beam_d, beam_exp=beam_exp, visited=visited)
-        return beam_ids[:, :k], beam_d[:, :k], st
-    return beam_ids[:, :k], beam_d[:, :k]
+    with graphs if graphs is not None else contextlib.nullcontext():
+        if graphs is None:
+            beam_ids, beam_d, beam_exp, visited = init()
+        else:       # from here on the closures read the entry's static inputs
+            q, states, ep = graphs.load(q, states, ep)
+            if graphs.setup is None:
+                graphs.capture(init, body, block)
+            graphs.replay(graphs.setup)
+            beam_ids, beam_d, beam_exp, visited = graphs.state
+        tally = init_tally(B, max_iters, dev) if stats else None
+        it = 0
+        while it < max_iters:
+            LOOP_STATS["syncs"] += 1
+            with trace_span("search.sync"):
+                active = bool(torch.any(~beam_exp & torch.isfinite(beam_d)))
+            if not active:
+                break
+            with trace_span("search.block"):
+                if graphs is not None and max_iters - it >= block:
+                    with trace_span("search.block.replay"):
+                        graphs.replay(graphs.block)
+                    it += block
+                    continue
+                for _ in range(min(block, max_iters - it)):
+                    beam_ids, beam_d, beam_exp, visited, masks = body(
+                        beam_ids, beam_d, beam_exp, visited)
+                    if stats:
+                        live, nb, d_new, keep = masks
+                        accumulate_iteration(tally, live=live, nb=nb, d_new=d_new,
+                                             keep=keep, it=it)
+                    it += 1
+        LOOP_STATS["iterations"] += it
+        if stats:
+            st = finalize_stats(tally, beam_d=beam_d, beam_exp=beam_exp, visited=visited)
+            return beam_ids[:, :k], beam_d[:, :k], st
+        if graphs is not None:      # the next call overwrites the graphs' buffers
+            return beam_ids[:, :k].clone(), beam_d[:, :k].clone()
+        return beam_ids[:, :k], beam_d[:, :k]
 
 
 def batched_udg_search(

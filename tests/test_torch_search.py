@@ -60,6 +60,32 @@ def test_planned_execution_matches_jax(case, plan, dtype, expand):
     assert_same(qs, (ij, dj), (it, dt))
 
 
+@pytest.mark.parametrize("expand", [1, 2])
+def test_cpu_search_never_enters_the_graph_path(case, expand, monkeypatch):
+    """On CPU tensors the loop runs eagerly: the graph cache is never
+    asked, no block is a ``search.block.replay``, and the answers are the
+    JAX package's."""
+    from repro_torch.obs import trace
+    from repro_torch.search import batched
+
+    def refuse(key, make):
+        raise AssertionError("the search loop asked for a CUDA graph on the CPU")
+
+    monkeypatch.setattr(batched, "_graph_entry", refuse)
+    _, qs, cfg, exports = case
+    jdg, tdg = exports["f32"]
+    ij, dj = jexec.execute_batch(
+        jdg, qs.vectors, qs.s_q, qs.t_q, k=K, expand=expand, plan="auto",
+        config=jexec.PlannerConfig(**cfg), use_ref=True)
+    n, _, before = trace.TOTALS.read()
+    got = execute_batch(tdg, qs.vectors, qs.s_q, qs.t_q, k=K, expand=expand, plan="auto",
+                        config=PlannerConfig(**cfg), device="cpu")
+    m, _, after = trace.TOTALS.read()
+    assert m == n + 1 and after["search.block"] > before["search.block"]
+    assert after["search.block.replay"] == before["search.block.replay"]
+    assert_same(qs, (ij, dj), got)
+
+
 def test_loop_block_size_does_not_change_results(case):
     _, qs, _, exports = case
     tdg = exports["f32"][1]

@@ -333,6 +333,46 @@ def test_span_reader_reads_the_window(metric, monkeypatch):
     assert read({"batches": 5, "trace": traced}) is None
 
 
+def test_a_block_replay_nests_in_its_block():
+    assert PARENT["search.block.replay"] == "search.block"
+
+
+def test_replay_share_reader_reads_replays_over_blocks(monkeypatch):
+    from udg_bench import spec
+
+    read = spec.reader("loop_replay_share")
+    tot = SpanTotals()
+    blocks, replays = SPANS.index("search.block"), SPANS.index("search.block.replay")
+    for calls_of in ({blocks: 10, replays: 10}, {blocks: 14, replays: 11}, {blocks: 6, replays: 0}):
+        tot.add([0] * len(SPANS), [calls_of.get(j, 1) for j in range(len(SPANS))], profiled=False)
+    monkeypatch.setattr(trace, "TOTALS", tot)
+    traced = {"batches": 2}
+    assert read({"batches": 5, "trace": traced}) == pytest.approx(100.0 * 21 / 30)
+    assert read({"batches": 3, "trace": None}) == pytest.approx(70.0)
+    assert read({"batches": 4, "trace": traced}) is None     # other batches than the window's
+    assert read({"batches": 2, "trace": traced}) is None     # no untraced batch
+    no_blocks = SpanTotals()
+    no_blocks.add([0] * len(SPANS), [int(j not in (blocks, replays)) for j in range(len(SPANS))],
+                  profiled=False)
+    monkeypatch.setattr(trace, "TOTALS", no_blocks)
+    assert read({"batches": 1, "trace": None}) is None       # no block ran
+    monkeypatch.delattr(trace, "TOTALS")                     # a program before the totals
+    assert read({"batches": 5, "trace": traced}) is None
+
+
+def test_replay_share_reader_reads_nothing_from_a_program_without_the_span(monkeypatch):
+    """The parent's catalog has no ``search.block.replay``: no reading."""
+    from udg_bench import spec
+
+    class Older:
+        def read(self):
+            return 3, dict.fromkeys(("exec.batch", "search.block"), 1.0), {
+                "exec.batch": 3, "search.block": 12}
+
+    monkeypatch.setattr(trace, "TOTALS", Older())
+    assert spec.reader("loop_replay_share")({"batches": 3, "trace": None}) is None
+
+
 def test_a_traced_cpu_run_reports_the_span_metrics(tmp_path, monkeypatch):
     """The tiny benchmark cell, traced on the CPU: every span metric is on
     the line, read from the window's untraced batches, and the batch's own
@@ -350,6 +390,7 @@ def test_a_traced_cpu_run_reports_the_span_metrics(tmp_path, monkeypatch):
     assert set(READERS) <= set(got) and "planner_ms" in got
     assert all(got[m]["value"] >= 0 for m in READERS)
     assert got["plan_ms"]["value"] > 0 and got["loop_launch_ms"]["value"] > 0
+    assert got["loop_replay_share"]["value"] == 0.0           # the CPU replays no graph
     cell = spec.load_cell("tiny-cell", root)
     # the totals hold the window's untraced batches, and only those
     n, seconds, _ = trace.TOTALS.read()
