@@ -17,6 +17,12 @@ line gives, for each number, the program's worst reading (the largest, or
 for a number held to a floor the smallest), the control's and each
 fault's best reading on the other side, and the cell's limits. Needs the
 card.
+
+A sharded cell (``sharded.py``) runs the same windows in every rank, each
+fault planted in every rank, and rank 0 reads them. Its first window's
+first batches are then served again in rank 0 alone, on a host mesh over
+every shard, and each rank's answers are compared with those bit for bit:
+one ``mesh`` line.
 """
 import argparse
 import json
@@ -40,6 +46,9 @@ def calibrate(cell, seeds: list, controls: set, planted: list, seconds: float, *
     """Emit one line a reading and return, for each side ("program",
     "control" and each planted fault's name), its worst reading of each
     number (``worst``). ``planted``: (fault name, seed) pairs."""
+    if "serve" in cell.config:
+        return calibrate_sharded(cell, seeds, controls, planted, seconds, device=device,
+                                 cache_dir=cache_dir)
     import pytest
 
     from udg_bench.reference import Corpus
@@ -55,13 +64,7 @@ def calibrate(cell, seeds: list, controls: set, planted: list, seconds: float, *
     k = cell.config["search"]["k"]
     reads = {}
 
-    def note(side, seed, win, read):
-        run.emit({"fault" if side not in ("program", "control") else side:
-                  {"side": side, "seed": seed, "batches": win["sent"], **read,
-                   "correct": check.judge(read, cell.limits)[0]}})
-        got = reads.setdefault(side, {})
-        for name in check.NUMBERS:
-            got[name] = worst(side, name, got.get(name, read[name]), read[name])
+    note = noter(cell, reads)
 
     def window(seed):
         qs = traffic.make_traffic(cell.traffic, cell.config, s, t, seed, device)
@@ -82,6 +85,91 @@ def calibrate(cell, seeds: list, controls: set, planted: list, seconds: float, *
             win, smp = window(seed)
         note(name, seed, win, check.judge_answers(exact, smp["q"], smp["s_q"], smp["t_q"],
                                                   smp["ids"], smp["dist"], k))
+    run.emit({"readings": reads, "limits": {n: cell.limits[n] for n in check.NUMBERS}})
+    return reads
+
+
+def noter(cell, reads: dict):
+    """``note(side, seed, win, read)``: emit one reading and keep each
+    side's worst in ``reads``."""
+
+    def note(side, seed, win, read):
+        run.emit({"fault" if side not in ("program", "control") else side:
+                  {"side": side, "seed": seed, "batches": win["sent"], **read,
+                   "correct": check.judge(read, cell.limits)[0]}})
+        got = reads.setdefault(side, {})
+        for name in check.NUMBERS:
+            got[name] = worst(side, name, got.get(name, read[name]), read[name])
+
+    return note
+
+
+def calibrate_sharded(cell, seeds: list, controls: set, planted: list, seconds: float, *,
+                      device="cuda", cache_dir: Path = run.index_cache.CACHE_DIR) -> dict:
+    """``calibrate`` for a sharded cell: every window in every rank, read on
+    rank 0; then the host-mesh comparison of the first window's first
+    ``sharded.KEEP_BATCHES`` batches."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from udg_bench import sharded
+    from udg_bench.reference import Corpus
+
+    run.import_program()
+    from repro_torch.distributed.mesh import make_host_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.serve.distributed import serve_batch
+
+    if torch.device(device).type == "cuda":
+        run.emit({"kernels": {"nvcc_s": _build.build_all(run.KERNELS)}})
+    vecs, s, t = run.corpus(cell.config)
+    exact = Corpus(vecs, s, t, cell.config["relation"], device, "exact")
+    tf32 = Corpus(vecs, s, t, cell.config["relation"], device, "tf32")
+    del vecs
+    k = cell.config["search"]["k"]
+    reads, kept = {}, {}
+    note = noter(cell, reads)
+    windows = ([{"seed": sd, "seconds": seconds, "trace": False, "fault": None, "keep": i == 0}
+                for i, sd in enumerate(seeds)]
+               + [{"seed": sd, "seconds": seconds, "trace": False, "fault": name}
+                  for name, sd in planted])
+
+    def judge(w, win, qs, records, setup):
+        smp = run.sampled(cell, qs, win, w["seed"])
+        q, sq, tq = smp["q"], smp["s_q"], smp["t_q"]
+        note(w["fault"] or "program", w["seed"], win,
+             check.judge_answers(exact, q, sq, tq, smp["ids"], smp["dist"], k))
+        if w["fault"] is None and w["seed"] in controls:
+            c_ids, c_dist, _ = tf32.topk(q, sq, tq, k)
+            note("control", w["seed"], win, check.judge_answers(exact, q, sq, tq, c_ids, c_dist, k))
+        if w.get("keep"):
+            rows = [traffic.batch_rows(cell.traffic, b) for b in range(sharded.KEEP_BATCHES)]
+            kept.update(qs=[{name: qs[name][r] for name in ("q", "s_q", "t_q")} for r in rows],
+                        answers=[r["answers"] for r in records],
+                        backends=[r["backend"] for r in records],
+                        cards=[r["card"] for r in records],
+                        graphs=[r["graphs"] for r in records],
+                        plan_mix=[{n[5:]: v for n, v in r["counters"].items()
+                                   if n.startswith("plan.")} for r in records])
+
+    index = sharded.run_ranks(cell, windows, judge, device=device, cache_dir=cache_dir,
+                              t_start=time.perf_counter())
+    run.emit({"index": index})
+    if kept:
+        world = cell.config["serve"]["shards"]
+        idx = sharded.restore_index(sharded.shard_files(cell, world, cache_dir))
+        mesh = make_host_mesh(world, device=device)
+        search = cell.config["search"]
+        host = [serve_batch(idx, mesh, qs["q"], qs["s_q"], qs["t_q"], k=search["k"],
+                            beam=search["beam"], merge=cell.config["serve"]["merge"],
+                            plan=search["plan"])
+                for qs in kept["qs"][:len(kept["answers"][0])]]
+        equal = [[bool(np.array_equal(a[0], h[0]) and np.array_equal(a[1], h[1]))
+                  for a, h in zip(answers, host)] for answers in kept["answers"]]
+        run.emit({"mesh": {"batches": len(host), "bit_equal_by_rank": equal,
+                           **{key: kept[key] for key in ("backends", "cards", "graphs", "plan_mix")}}})
     run.emit({"readings": reads, "limits": {n: cell.limits[n] for n in check.NUMBERS}})
     return reads
 

@@ -69,6 +69,29 @@ def make_tiny_root(root: Path, *, relation: str = "containment", n: int = 2048, 
     return root
 
 
+def add_tiny_sharded(root: Path, shards: int, *, n: int = 4096) -> str:
+    """Add to a tiny root the configuration ``tiny-shard<S>`` (the tiny
+    configuration's sizes over ``n`` rows, ``shards`` shards, the
+    ``all_gather`` merge) and the cell ``tiny-sharded<S>`` on ``shards``
+    chips, with the tiny cell's limits; returns the cell's name."""
+    import json
+
+    bench = root / "udg_bench"
+    name, cell = f"tiny-shard{shards}", f"tiny-sharded{shards}"
+    cfg = json.loads((bench / "configs" / "tiny.json").read_text())
+    cfg.update(name=name, n=n, serve={"shards": shards, "merge": "all_gather"})
+    (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    (bench / "limits" / f"{cell}.json").write_text((bench / "limits" / "tiny-cell.json").read_text())
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    b["configs"].append(dict(b["configs"][0], name=name, file=f"udg_bench/configs/{name}.json"))
+    b["workloads"].append(dict(b["workloads"][0], name=cell, config=name, traffic="tiny",
+                               chips=shards))
+    for m in b["per_layer"]:
+        m["workloads"] = m["workloads"] + [cell]
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    return cell
+
+
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory):
     return make_tiny_root(tmp_path_factory.mktemp("tiny"))

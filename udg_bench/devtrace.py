@@ -2,7 +2,8 @@
 
 ``by_name`` sums device time and launches by kernel name, as
 ``chip_smoke.traced_ms`` does; ``kernel_split`` is ``chip_smoke.traced_split``'s
-grouping (``filter_dist_kernel``: B1 and B3, ``beam_merge_kernel``: B2). The
+grouping (``filter_dist_kernel``: B1 and B3, ``beam_merge_kernel``: B2), and
+NCCL's kernels (a name holding ``nccl``) are the collectives. The
 idle share is measured on the slice's own wall time: the union of every
 device interval (kernels, copies, sets) against the host clock from the
 first traced batch's call to the last one's return. Each idle gap is named
@@ -16,6 +17,7 @@ from collections import defaultdict
 
 SCORER = "filter_dist_kernel"      # B1 (packed gather) and B3 (brute, int32)
 MERGE = "beam_merge_kernel"        # B2
+COLLECTIVE = "nccl"                # NCCL's kernels, in any case
 WINDOW_LABEL = "udg_bench.traced_window"
 
 
@@ -90,10 +92,11 @@ def summarize(dev: list, host: list, frame, window_s: float, batches: int) -> di
     total = sum(t for t, _ in by_name.values())
     scorer = sum(t for n, (t, _) in by_name.items() if SCORER in n)
     merge = sum(t for n, (t, _) in by_name.items() if MERGE in n)
+    collective = sum(t for n, (t, _) in by_name.items() if COLLECTIVE in n.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {
         "batches": batches, "busy_s": busy_s, "window_s": window_s,
-        "device_s": total, "scorer_s": scorer, "merge_s": merge,
+        "device_s": total, "scorer_s": scorer, "merge_s": merge, "collective_s": collective,
         "launches": sum(c for _, c in by_name.values()),
         "device_ops": [[n[:120], t] for n, (t, _) in top],
         "idle_gaps": [[n[:120], t] for n, t in sorted(idle.items(), key=lambda kv: -kv[1])[:10]],

@@ -20,8 +20,11 @@ def unchanged_state(mp) -> None:
 
 
 def half_batch(mp) -> None:
-    """Half of each batch is left out: its rows come back empty."""
+    """Half of each batch is left out: its rows come back empty. Planted
+    where each path looks the executor's core up: the executor's module
+    and the sharded serving step's, which imported it by name."""
     from repro_torch.exec import executor
+    from repro_torch.serve import distributed
 
     inner = executor.planned_exec_core
 
@@ -32,6 +35,7 @@ def half_batch(mp) -> None:
         return ids, d
 
     mp.setattr(executor, "planned_exec_core", half)
+    mp.setattr(distributed, "planned_exec_core", half)
 
 
 def altered_answer(mp) -> None:
@@ -63,11 +67,14 @@ def one_block(mp) -> None:
 
 def graph_only(mp) -> None:
     """The planner's routing is skipped: every row takes the plain graph
-    search, whatever its selectivity."""
+    search, whatever its selectivity (both entry points: the executor's and
+    the sharded ``serve_batch``)."""
     from repro_torch.exec import executor
+    from repro_torch.serve import distributed
 
-    inner = executor.execute_batch
-    mp.setattr(executor, "execute_batch", lambda *a, **kw: inner(*a, **{**kw, "plan": "graph"}))
+    for mod, name in ((executor, "execute_batch"), (distributed, "serve_batch")):
+        inner = getattr(mod, name)
+        mp.setattr(mod, name, lambda *a, inner=inner, **kw: inner(*a, **{**kw, "plan": "graph"}))
 
 
 def half_candidates(mp) -> None:
@@ -85,5 +92,32 @@ def half_candidates(mp) -> None:
     mp.setattr(ops, "beam_merge", dropped)
 
 
+def shard_dropped(mp) -> None:
+    """One shard's partial top-k comes back empty before the cross-shard
+    merge: the last shard, on the rank that holds it (every shard is local
+    to the one process of a host mesh)."""
+    import torch
+    from repro_torch.serve import distributed
+
+    inner = distributed._merge_across_shards
+
+    def dropped(mesh, views, **kw):
+        last = mesh.model - 1
+        views = [(torch.full_like(g, -1), torch.full_like(d, float("inf"))) if sh == last else (g, d)
+                 for sh, (g, d) in zip(mesh.local_shards, views)]
+        return inner(mesh, views, **kw)
+
+    mp.setattr(distributed, "_merge_across_shards", dropped)
+
+
+def exchange_skipped(mp) -> None:
+    """The exchange between cards is left out: each process merges only the
+    shards it holds, and answers from those."""
+    from repro_torch.serve import distributed
+
+    mp.setattr(distributed, "_merge_across_shards",
+               lambda mesh, views, *, k, merge: distributed._merge_topk(views, k))
+
+
 FAULTS = {f.__name__: f for f in (unchanged_state, half_batch, altered_answer, one_block,
-                                   graph_only, half_candidates)}
+                                   graph_only, half_candidates, shard_dropped, exchange_skipped)}

@@ -26,6 +26,9 @@ the result: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer ones), ``device``,
 with ``--trace 1`` ``breakdown``, and last ``checks``, each compared number
 beside its limit, which also end standard error. Exits 2 without a card.
+
+A cell whose configuration has a ``serve`` group runs sharded instead, one
+process a card, through the program's ``serve_batch`` (``sharded.py``).
 """
 import time
 
@@ -49,6 +52,8 @@ from udg_bench import check, datagen, index_cache, spec, traffic  # noqa: E402
 from udg_bench.devtrace import Tracer  # noqa: E402
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+KERNELS = ("filter_dist", "beam_merge")       # the kernel libraries the cells launch
+SMI_CLOCKS = "clocks.sm,clocks.mem,power.draw,temperature.gpu"   # read before and after a window
 # program entry points the harness times and labels in a traced run:
 # (module, attribute, label)
 LABELS = (
@@ -77,6 +82,17 @@ def import_program():
     return repro_torch
 
 
+def load_kernels() -> None:
+    """Load the kernel libraries the cells launch before the first search: a
+    search's captured graph is keyed on the libraries loaded, so one loaded
+    inside the warm-up's first search would make the window's first batch
+    capture that search again."""
+    from repro_torch.kernels import _build
+
+    for name in KERNELS:
+        _build.library(name)
+
+
 def card_info() -> dict:
     import torch
 
@@ -85,13 +101,18 @@ def card_info() -> dict:
     return out
 
 
-def smi(fields: str):
+def smi(fields: str, cards: int = 1):
+    """``nvidia-smi``'s reading of ``fields`` on the first card, or a list
+    over the first ``cards`` cards when that is more than one."""
     try:
         done = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=30)
     except (OSError, subprocess.TimeoutExpired) as exc:
         return f"not read: {exc}"
-    return done.stdout.strip().splitlines()[0] if done.returncode == 0 else f"not read: rc {done.returncode}"
+    if done.returncode != 0:
+        return f"not read: rc {done.returncode}"
+    lines = done.stdout.strip().splitlines()
+    return lines[0] if cards == 1 else lines[:cards]
 
 
 def corpus(cfg: dict) -> tuple:
@@ -140,8 +161,8 @@ def load_index(cell, device, cache_dir: Path) -> tuple:
 
 
 @contextmanager
-def layer_spans(spans: dict):
-    """Time and label the program's layers (``LABELS``) for the block."""
+def layer_spans(spans: dict, labels=LABELS):
+    """Time and label the program's layers (``labels``) for the block."""
     import importlib
 
     from torch.profiler import record_function
@@ -157,7 +178,7 @@ def layer_spans(spans: dict):
             return out
         return timed
 
-    for mod_name, attr, label in LABELS:
+    for mod_name, attr, label in labels:
         mod = importlib.import_module(mod_name)
         saved.append((mod, attr, getattr(mod, attr)))
         setattr(mod, attr, wrap(getattr(mod, attr), label))
@@ -198,9 +219,13 @@ def warm_up(cell, dg, qs: dict, device) -> None:
         send(cell, dg, qs, b, device)
 
 
-def run_window(cell, dg, qs: dict, seconds: float, trace: bool, device) -> dict:
+def run_window(cell, dg, qs: dict, seconds: float, trace: bool, device, *, send=send,
+               agree=bool, labels=LABELS) -> dict:
     """The closed loop: returns each batch's answers and latency, the
-    window's length, counter deltas and, traced, spans and the trace."""
+    window's length, counter deltas and, traced, spans and the trace.
+    ``send(cell, dg, qs, i, device)`` sends batch i; ``agree(go)`` turns
+    this process's decision whether another batch follows into the one
+    every process of the run takes (``sharded.py``: rank 0's)."""
     mix = cell.traffic
     outs, lat, ends, spans = [], [], [], {}
     before = counters()
@@ -212,14 +237,14 @@ def run_window(cell, dg, qs: dict, seconds: float, trace: bool, device) -> dict:
         lat.append(ends[-1] - t0)
 
     traced = mix["trace_batches"] if trace else math.inf
-    with layer_spans(spans) if trace else nullcontext():
-        with Tracer(label for *_, label in LABELS) if trace else nullcontext() as tr:
+    with layer_spans(spans, labels) if trace else nullcontext():
+        with Tracer(label for *_, label in labels) if trace else nullcontext() as tr:
             start = time.perf_counter()
             i = 0
-            while i == 0 or (i < traced and time.perf_counter() - start < seconds):
+            while agree(i == 0 or (i < traced and time.perf_counter() - start < seconds)):
                 one(i)
                 i += 1
-        while time.perf_counter() - start < seconds:
+        while agree(time.perf_counter() - start < seconds):
             one(i)
             i += 1
         end = time.perf_counter()
@@ -278,7 +303,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, device="cuda",
 
     if on_card:
         emit({"card": card_info()})
-        emit({"kernels": {"nvcc_s": _build.build_all(["filter_dist", "beam_merge"])}})
+        emit({"kernels": {"nvcc_s": _build.build_all(KERNELS)}})
+        load_kernels()
     setup = {"program_s": time.perf_counter() - t_start}
     dg, index = load_index(cell, device, cache_dir)
     emit({"index": index})
@@ -296,10 +322,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, device="cuda",
     setup["warmup_s"] = time.perf_counter() - t0
     setup_s = time.perf_counter() - t_start
     emit({"setup": {"setup_s": setup_s, **setup}})
-    clocks = {"before": smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")} if on_card else {}
+    clocks = {"before": smi(SMI_CLOCKS)} if on_card else {}
     win = run_window(cell, dg, qs, seconds, trace, device)
     if on_card:
-        clocks["after"] = smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
+        clocks["after"] = smi(SMI_CLOCKS)
         peak = torch.cuda.max_memory_allocated()
     else:
         peak = 0
@@ -363,7 +389,12 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available",
               file=sys.stderr)
         return 2
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace))
+    if "serve" in cell.config:
+        from udg_bench import sharded
+
+        result = sharded.run_cell(cell, args.seed, args.seconds, bool(args.trace))
+    else:
+        result = run_cell(cell, args.seed, args.seconds, bool(args.trace))
     if result is None:
         return 1
     print(json.dumps(result), flush=True)

@@ -12,6 +12,10 @@ configuration, traffic mix and chips, and each metric. The files:
   ``read(ctx) -> float | None`` (``None``: nothing to read in this run, and
   the metric is left out of the line).
 
+A configuration with a ``serve`` group is served sharded: ``shards`` cards,
+one process and one shard a card, through the program's ``serve_batch``
+(``sharded.py``); one without it runs in one process on one card.
+
 Adding a cell, a configuration, a mix or a metric is adding files and
 entries; no file here changes.
 """
@@ -36,6 +40,12 @@ CONFIG_KEYS = {"name", "deployment", "source", "n", "dim", "relation", "dtype", 
 GROUP_KEYS = {"data": {"vectors", "clusters", "spread", "intervals", "T", "data_seed"},
               "build": {"M", "Z", "K_p"},
               "search": {"plan", "k", "beam"}}
+# groups a configuration may leave out; with one, every key of it is needed
+OPTIONAL_GROUPS = {"serve": {"shards", "merge"}}
+# the cross-shard merges of the program's serve_batch (repro_torch.serve.distributed.MERGES)
+MERGES = ("all_gather", "tournament")
+# the plans serve_batch takes
+SERVE_PLANS = ("auto", "graph")
 # the values the harness can make or pass on
 CHOICES = {("dtype",): {"float32"},
            ("data", "vectors"): {"gaussian_mixture"},
@@ -64,8 +74,9 @@ def load_benchmark(root: Path = ROOT) -> dict:
 
 def validate_config(cfg: dict) -> dict:
     """``cfg``, or ValueError naming a missing or unknown key or value."""
-    missing, unknown = CONFIG_KEYS - set(cfg), set(cfg) - CONFIG_KEYS
-    for group, keys in GROUP_KEYS.items():
+    missing, unknown = CONFIG_KEYS - set(cfg), set(cfg) - CONFIG_KEYS - set(OPTIONAL_GROUPS)
+    groups = {**GROUP_KEYS, **{g: k for g, k in OPTIONAL_GROUPS.items() if g in cfg}}
+    for group, keys in groups.items():
         sub = cfg.get(group, {})
         missing |= {f"{group}.{k}" for k in keys - set(sub)}
         unknown |= {f"{group}.{k}" for k in set(sub) - keys}
@@ -79,7 +90,25 @@ def validate_config(cfg: dict) -> dict:
         if value not in allowed:
             raise ValueError(f"configuration {cfg['name']!r}: {'.'.join(path)} = {value!r} "
                              f"is not one of {sorted(allowed)}")
+    if "serve" in cfg:
+        validate_serve(cfg)
     return cfg
+
+
+def validate_serve(cfg: dict) -> None:
+    """A sharded configuration: ``shards`` divides ``n``, ``merge`` is one
+    of the program's merges, ``search.plan`` one ``serve_batch`` takes."""
+    shards, merge, plan = cfg["serve"]["shards"], cfg["serve"]["merge"], cfg["search"]["plan"]
+    name = cfg["name"]
+    if not isinstance(shards, int) or isinstance(shards, bool) or shards < 1:
+        raise ValueError(f"configuration {name!r}: serve.shards = {shards!r} is not a count")
+    if cfg["n"] % shards:
+        raise ValueError(f"configuration {name!r}: {shards} shards do not divide n = {cfg['n']}")
+    if merge not in MERGES:
+        raise ValueError(f"configuration {name!r}: serve.merge = {merge!r} is not one of {MERGES}")
+    if plan not in SERVE_PLANS:
+        raise ValueError(f"configuration {name!r}: search.plan = {plan!r} is not one of "
+                         f"{SERVE_PLANS}, the plans a sharded batch takes")
 
 
 def validate_limits(limits: dict, cell: str) -> dict:
@@ -110,6 +139,10 @@ def load_cell(name: str, root: Path = ROOT, bench: dict | None = None) -> Cell:
         (root / "udg_bench" / "traffic" / f"{w['traffic']}.json").read_text()))
     limits = validate_limits(json.loads(
         (root / "udg_bench" / "limits" / f"{name}.json").read_text()), name)
+    shards = cfg.get("serve", {}).get("shards", 1)
+    if int(w["chips"]) != shards:
+        raise ValueError(f"cell {name!r} asks for {w['chips']} chips, and its configuration "
+                         f"{w['config']!r} runs on {shards} (serve.shards, 1 without the group)")
     return Cell(
         root=root, name=name, chips=int(w["chips"]), config_name=w["config"], config_file=cfg_file,
         config=cfg, traffic=mix, limits=limits,

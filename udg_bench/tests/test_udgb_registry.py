@@ -15,7 +15,7 @@ def test_every_cell_loads(workload):
     cell = spec.load_cell(workload)
     assert cell.config["name"] == cell.config_name
     assert cell.config_file.parent == ROOT / "udg_bench" / "configs"
-    assert set(cell.config) == spec.CONFIG_KEYS
+    assert spec.CONFIG_KEYS <= set(cell.config) <= spec.CONFIG_KEYS | set(spec.OPTIONAL_GROUPS)
     assert set(cell.limits) - {"set_from"} == set(check.NUMBERS)
     assert cell.traffic["batch"] > 0 and cell.traffic["selectivities"]
     assert {"qps", "p95_ms", "recall_at_10", "setup_s"} <= {m["name"] for m in cell.end_to_end}
